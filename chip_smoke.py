@@ -5,19 +5,29 @@
 
 Phases, each printing its result; any failure exits non-zero:
   0. device: the card's name and power limit (nvidia-smi);
-  1. build: nvcc builds the scan and sweep kernels from csrc/;
+  1. build: nvcc builds the scan, sweep and walk kernels from csrc/, one
+     process per source, all started together;
   2. kernels against their plain PyTorch versions on the card, bit-equal
      (integer outputs, tolerance 0): the scan on a full 4 Mbp tile at
      (k, m) = (31, 11), (63, 15), (15, 5) and on a 1,024 x 1 kb read
      batch; every sweep of that tile's resolve and of the read batch's
-     resolve. Kernel and plain times come from CUDA events;
+     resolve; the walk over a full tile's successor words at s = 1000
+     and s = 1, and over the next tile entered from its carry. Kernel
+     and plain times come from CUDA events, as does the time of the
+     successor-table pass at the tile;
   3. goldens: the 10 tests/golden sketches, and the CLI's compressed
-     output and stdout, from sketches made on the card;
+     output and stdout, from sketches made on the card; the 10 again
+     through the exact engine (scan_engine = "legacy");
   4. real size: a 5 Mbp genome (two tiles) and 2,000 x 1 kb reads give
-     the same bytes on the card and on the CPU; the bench corpus
-     (8 x 4,194,000 bp, 10,000 x 1 kb reads, k=31, m=11, s=1000) runs
-     through the CLI on the card with the launch counters reset before
-     and read after.
+     the same bytes on the card and on the CPU; a desert corpus (a
+     12 Mbp record with a 3 kb poly-T in tile 1, a 100 kb record with a
+     3 kb poly-A, 2,000 x 1 kb reads among 20 desert records) falls back
+     to the walker on every route and gives the same bytes on the card,
+     on the CPU and through the legacy engine on the card; the bench
+     corpus (8 x 4,194,000 bp, 10,000 x 1 kb reads, k=31, m=11, s=1000)
+     runs through the CLI on the card, and its genome again through the
+     legacy engine, whose sketch must hash the same. Each of these
+     paths runs with the launch counters reset before and read after.
 The line before the last is the kernel table; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card; no network.
 """
@@ -213,8 +223,61 @@ def phase_kernels(rng, device, tile_p=TILE_P, tile_l=TILE_L,
     return res
 
 
-def phase_goldens(device, workdir) -> None:
-    """Phase 3: the golden sketches and the CLI, sketched on device."""
+def phase_walk(rng, device, tile_p=TILE_P, timing=True):
+    """Phase 2, walk: the kernel against walk_plain over the successor
+    words of a full tile and of the next tile (entered from the first's
+    carry), at s = 1000 and s = 1. Returns {max_abs_err, ms, plain_ms,
+    ms_s1, plain_ms_s1, succ_ms} (times at the first tile)."""
+    from supersampler_tpu_torch.ops import walker as TW
+    from supersampler_tpu_torch.ops.minimizer import pack_2bit, succ_tables
+    from supersampler_tpu_torch.ops.scan_kernel import scan_kernel
+    from supersampler_tpu_torch.sketch import TorchSubsampler
+
+    own = tile_p - 512
+    length = 2 * own + 100_000          # both tiles are non-final
+    codes = torch.from_numpy(rng.integers(0, 4, own + tile_p,
+                                          dtype=np.uint8))
+    res = {"max_abs_err": 0}
+    for s, key in ((S, ""), (1.0, "_s1")):
+        thr = TorchSubsampler(k=K, m=M, s=s, device=device).threshold
+        thr_w = (thr >> 32, thr & 0xFFFFFFFF)
+        init5 = fb = None
+        for t in range(2):
+            L_t = length - t * own
+            packed = pack_2bit(codes[t * own : t * own + tile_p]).to(device)
+            last_i = torch.tensor([L_t - K - 1], dtype=torch.int32,
+                                  device=device)
+            *tabs, _sync, init = scan_kernel(packed, K, M, tile_p, last_i)
+            tab = succ_tables(tabs, init[:, 0], K, M, L_t, *thr_w)
+            words = TW.pack_succ(tab, own)
+            if init5 is None:
+                init5 = TW._init5_from_tables(tab)
+                fb = TW._fb_from_tables(tab)
+            got = TW.walk_kernel(words, init5)
+            err = max_abs_err(got, TW.walk_plain(words, init5))
+            if err:
+                raise AssertionError(f"walk kernel != plain at s={s}, tile "
+                                     f"{t}: max_abs_err {err}")
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            log(f"  walk kernel == plain at s={s:g}, tile {t} "
+                f"({'entered from the carry' if t else 'window-0 entry'}): "
+                f"{int(got[4][0])} events, {int(got[3].sum())} emits, "
+                f"bit-equal (max_abs_err {err})")
+            if t == 0 and timing:
+                res["ms" + key], res["plain_ms" + key] = time_pair(
+                    lambda: TW.walk_kernel(words, init5),
+                    lambda: TW.walk_plain(words, init5), (20, 1))
+                if not key:
+                    res["succ_ms"] = cuda_ms(
+                        lambda: succ_tables(tabs, init[:, 0], K, M, L_t,
+                                            *thr_w), 5)
+            init5, fb = TW._carry_next(got[4], tab, fb, own)
+    return res
+
+
+def phase_goldens(device, workdir, engine="field") -> None:
+    """Phase 3: the golden sketches, and for the field engine the CLI,
+    sketched on device."""
     import importlib.util
 
     from supersampler_tpu_torch.cli import sub_sampler as cli
@@ -235,9 +298,14 @@ def phase_goldens(device, workdir) -> None:
         ss = TorchSubsampler(k=cfg["k"], m=cfg["m"],
                              s=float(np.float32(cfg["s"])),
                              abundance=cfg["a"], device=device)
+        ss.scan_engine = engine
         if ss.sketch_file(data[cfg["dataset"]]) != want:
-            raise AssertionError(f"golden {cfg['file']} differs")
-    log(f"  all {len(meta['sketches'])} golden sketches equal")
+            raise AssertionError(f"golden {cfg['file']} differs "
+                                 f"({engine} engine)")
+    log(f"  all {len(meta['sketches'])} golden sketches equal ({engine} "
+        f"engine)")
+    if engine != "field":
+        return
     cwd = os.getcwd()
     os.chdir(workdir)
     try:
@@ -299,6 +367,72 @@ def phase_cpu_parity(rng, device, workdir, glen=5_000_000, n_reads=2000):
             f"cpu {out['cpu_s']:.3f} s)")
 
 
+def reset_launches() -> None:
+    from supersampler_tpu_torch.ops.field import sweep_kernel
+    from supersampler_tpu_torch.ops.scan_kernel import scan_kernel
+    from supersampler_tpu_torch.ops.walker import walk_kernel
+
+    scan_kernel.launches = sweep_kernel.launches = walk_kernel.launches = 0
+
+
+def read_launches() -> dict:
+    from supersampler_tpu_torch.ops.field import sweep_kernel
+    from supersampler_tpu_torch.ops.scan_kernel import scan_kernel
+    from supersampler_tpu_torch.ops.walker import walk_kernel
+
+    return {"scan": scan_kernel.launches, "sweep": sweep_kernel.launches,
+            "walk": walk_kernel.launches}
+
+
+def phase_desert(rng, device, workdir, long_len=12_000_000, single_len=100_000, n_reads=2000,
+                 n_deserts=20) -> None:
+    """Phase 4: records the field resolve cannot settle, on all three
+    routes. The field engine on the card must fall back on each route
+    and give the bytes of the CPU and of the legacy engine on the card."""
+    from supersampler_tpu_torch.sketch import TorchSubsampler
+
+    own = TILE_P - 512
+    A, T = 0, 3                          # codes of _ACGT
+    desert = np.full(3000, T, np.uint8)
+    recs = []
+    for i in range(n_reads):
+        if i % (n_reads // n_deserts) == 0:
+            recs.append(np.concatenate([
+                rng.integers(0, 4, 500, dtype=np.uint8), desert,
+                rng.integers(0, 4, 500, dtype=np.uint8)]))
+        recs.append(rng.integers(0, 4, 1000, dtype=np.uint8))
+    single = rng.integers(0, 4, single_len, dtype=np.uint8)
+    single[single_len // 2 : single_len // 2 + 3000] = A
+    long_rec = rng.integers(0, 4, long_len, dtype=np.uint8)
+    at = own + (long_len - own) // 2      # inside tile 1
+    long_rec[at : at + 3000] = T
+    path = os.path.join(workdir, "desert.fa")
+    bases = write_fasta(path, recs + [single, long_rec], b"d", width=80)
+    out, walls = {}, {}
+    for name, dev, engine in (("card", device, "field"),
+                              ("cpu", "cpu", "field"),
+                              ("card legacy", device, "legacy")):
+        ss = TorchSubsampler(k=K, m=M, s=S, device=dev)
+        ss.scan_engine = engine
+        reset_launches()
+        t0 = time.perf_counter()
+        out[name] = ss.sketch_file(path)
+        walls[name] = time.perf_counter() - t0
+        counts = read_launches()
+        log(f"  desert corpus ({bases} bases), {name}: "
+            f"{walls[name]:.3f} s, fallbacks {ss.fallbacks}, launches "
+            f"{counts}")
+        if name == "card":
+            if min(ss.fallbacks.values()) < 1 or counts["walk"] < 1:
+                raise AssertionError("a route did not fall back to the "
+                                     f"walker: {ss.fallbacks}, {counts}")
+    if not out["card"] == out["cpu"] == out["card legacy"]:
+        raise AssertionError("desert corpus: card, cpu and legacy bytes "
+                             "differ")
+    log(f"  desert corpus: card == cpu == card legacy bytes "
+        f"({len(out['cpu'])} B)")
+
+
 def check_sketch(raw: bytes) -> None:
     """A sketch starts '<2k-m> <m> <selected k-mers> <s>' and has
     buckets after it."""
@@ -312,10 +446,9 @@ def check_sketch(raw: bytes) -> None:
 def phase_bench(rng, workdir, n_rec=8, glen=TILE_L, n_reads=10_000):
     """Phase 4b: the bench corpus through the CLI on the card; the
     kernels' launch counters are reset just before and read after.
-    Returns the launch counts."""
+    Returns (launch counts, genome path, its bases, its sketch
+    sha256)."""
     from supersampler_tpu_torch.cli import sub_sampler as cli
-    from supersampler_tpu_torch.ops.field import sweep_kernel
-    from supersampler_tpu_torch.ops.scan_kernel import scan_kernel
 
     genome = os.path.join(workdir, "bench_genome.fa")
     reads = os.path.join(workdir, "bench_reads.fa")
@@ -325,8 +458,7 @@ def phase_bench(rng, workdir, n_rec=8, glen=TILE_L, n_reads=10_000):
         reads, rng.integers(0, 4, (n_reads, 1000), dtype=np.uint8), b"q")
     cwd = os.getcwd()
     os.chdir(workdir)
-    scan_kernel.launches = 0
-    sweep_kernel.launches = 0
+    reset_launches()
     walls = {}
     try:
         for path, bases in ((genome, g_bases), (reads, r_bases)):
@@ -337,8 +469,9 @@ def phase_bench(rng, workdir, n_rec=8, glen=TILE_L, n_reads=10_000):
             walls[path] = (time.perf_counter() - t0, bases, rc)
     finally:
         os.chdir(cwd)
-    counts = {"scan": scan_kernel.launches, "sweep": sweep_kernel.launches}
+    counts = read_launches()
     gpu = gpu_line()
+    shas = {}
     for path, (wall, bases, rc) in walls.items():
         out = os.path.join(workdir, "out_" + os.path.basename(path)
                            .rsplit(".", 1)[0] + ".gz")
@@ -347,14 +480,47 @@ def phase_bench(rng, workdir, n_rec=8, glen=TILE_L, n_reads=10_000):
         if rc != 0:
             raise AssertionError(f"CLI rc {rc} on {path}")
         check_sketch(gzip.decompress(gz))
+        shas[path] = hashlib.sha256(gz).hexdigest()
         log(f"  {os.path.basename(path)}: {bases} bases, wall {wall:.3f} s,"
             f" {bases / 1e6 / wall:.1f} Mbases/s, sketch sha256 "
-            f"{hashlib.sha256(gz).hexdigest()} [{gpu}]")
+            f"{shas[path]} [{gpu}]")
     log(f"  launches in this run: scan {counts['scan']}, "
-        f"sweep {counts['sweep']} [{gpu}]")
-    if min(counts.values()) <= 0:
+        f"sweep {counts['sweep']}, walk {counts['walk']} [{gpu}]")
+    if min(counts["scan"], counts["sweep"]) <= 0:
         raise AssertionError(f"a kernel of the path never launched: "
                              f"{counts}")
+    return counts, genome, g_bases, shas[genome]
+
+
+def phase_bench_legacy(device, workdir, genome, bases, want_sha) -> dict:
+    """Phase 4: the bench genome through the legacy engine on the card,
+    launch counters reset before and read after; its sketch must hash
+    as the field engine's. Returns the launch counts."""
+    from supersampler_tpu_torch.sketch import TorchSubsampler, subsample_file
+
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        ss = TorchSubsampler(k=K, m=M, s=S, device=device)
+        ss.scan_engine = "legacy"
+        out = subsample_file(ss, genome, "legacy_")
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    counts = read_launches()
+    with open(os.path.join(workdir, out), "rb") as f:
+        sha = hashlib.sha256(f.read()).hexdigest()
+    log(f"  {os.path.basename(genome)} through the legacy engine: {bases} "
+        f"bases, wall {wall:.3f} s, {bases / 1e6 / wall:.1f} Mbases/s, "
+        f"sketch sha256 {sha}, launches {counts} [{gpu_line()}]")
+    if sha != want_sha:
+        raise AssertionError("legacy engine sketch differs from the field "
+                             "engine's")
+    if counts["walk"] <= 0 or counts["scan"] <= 0:
+        raise AssertionError(f"a kernel of the legacy path never launched:"
+                             f" {counts}")
     return counts
 
 
@@ -382,17 +548,27 @@ def main(argv=None) -> int:
 
     log("[2] kernels vs plain on the card")
     kt = phase_kernels(rng, "cuda")
+    kt["walk"] = phase_walk(rng, "cuda")
     with tempfile.TemporaryDirectory() as tmp:
         log("[3] goldens on the card")
         phase_goldens("cuda", tmp)
+        phase_goldens("cuda", tmp, engine="legacy")
         log("[4] real size")
         phase_cpu_parity(rng, "cuda", tmp)
-        counts = phase_bench(rng, tmp)
+        phase_desert(rng, "cuda", tmp)
+        counts, *bench_genome = phase_bench(rng, tmp)
+        counts["walk"] = phase_bench_legacy("cuda", tmp,
+                                            *bench_genome)["walk"]
     for name, key in (("tile", ""), ("1024 x 1 kb batch", "_reads")):
         log(f"  times at the {name}: scan {kt['scan' + key]['ms']:.4f} ms "
             f"(plain {kt['scan' + key]['plain_ms']:.4f} ms), sweep "
             f"{kt['sweep' + key]['ms']:.4f} ms (plain "
             f"{kt['sweep' + key]['plain_ms']:.4f} ms) [{gpu}]")
+    w = kt["walk"]
+    log(f"  walk at the tile: s=1000 {w['ms']:.4f} ms (plain "
+        f"{w['plain_ms']:.4f} ms), s=1 {w['ms_s1']:.4f} ms (plain "
+        f"{w['plain_ms_s1']:.4f} ms); successor-table pass "
+        f"{w['succ_ms']:.4f} ms [{gpu}]")
     table = {"kernels": [
         {"name": "scan", "route": "cuda",
          "source": "supersampler_tpu_torch/csrc/scan.cu",
@@ -406,6 +582,11 @@ def main(argv=None) -> int:
          "launches": counts["sweep"],
          "max_abs_err": kt["sweep"]["max_abs_err"],
          "ms": kt["sweep"]["ms"], "plain_ms": kt["sweep"]["plain_ms"]},
+        {"name": "walk", "route": "cuda",
+         "source": "supersampler_tpu_torch/csrc/walk.cu",
+         "replaces": "supersampler_tpu/ops/walker.py:72",
+         "launches": counts["walk"], "max_abs_err": w["max_abs_err"],
+         "ms": w["ms"], "plain_ms": w["plain_ms"]},
     ]}
     print(gpu)
     print(json.dumps(table))

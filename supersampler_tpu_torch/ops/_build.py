@@ -4,7 +4,9 @@ The pattern of supersampler_tpu/native.py:26-60, for CUDA: the sources
 in ``csrc/*.cu`` have a plain C interface and compile with ``nvcc`` for
 ``sm_90a`` into one shared library under ``build/torch_kernels/`` at
 the first CUDA call, and again whenever a source is newer than the
-library. A failed build raises; nothing falls back.
+library. Each source compiles in its own ``nvcc`` process, all started
+together, then one more links them. A failed build raises; nothing
+falls back.
 """
 
 from __future__ import annotations
@@ -17,11 +19,12 @@ import threading
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCES = [os.path.join(_PKG, "csrc", f) for f in ("scan.cu", "sweep.cu")]
+_SOURCES = [os.path.join(_PKG, "csrc", f)
+            for f in ("scan.cu", "sweep.cu", "walk.cu")]
 _OUT_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 _LIB = os.path.join(_OUT_DIR, "libspsp_torch_kernels.so")
-_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib = None
@@ -54,14 +57,40 @@ def _stale() -> bool:
     return any(os.path.getmtime(s) > built for s in _SOURCES)
 
 
+def _finish(cmd, proc) -> None:
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{out}{err}")
+
+
 def _build() -> None:
     os.makedirs(_OUT_DIR, exist_ok=True)
-    tmp = f"{_LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *_FLAGS, "-o", tmp, *_SOURCES]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc {r.returncode}):\n"
-                           f"{' '.join(cmd)}\n{r.stdout}{r.stderr}")
+    nvcc = _nvcc()
+    tag = os.getpid()
+    objs, jobs = [], []
+    for src in _SOURCES:
+        obj = os.path.join(_OUT_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        jobs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    tmp = f"{_LIB}.{tag}.tmp"
+    try:
+        for cmd, proc in jobs:
+            _finish(cmd, proc)
+        cmd = [nvcc, *_ARCH, "-shared", "-o", tmp, *objs]
+        _finish(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    finally:
+        for _cmd, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, _LIB)
 
 
@@ -85,6 +114,8 @@ def lib() -> ctypes.CDLL:
         lb.spsp_sweep.argtypes = (
             [_P] * 7 + [_P, _P, _U32, _U32, _I, _I, _I, _I]
             + [_P] * 4 + [_P])
+        lb.spsp_walk.restype = _I
+        lb.spsp_walk.argtypes = [_P, _I] + [_P] * 7
         _lib = lb
         return _lib
 

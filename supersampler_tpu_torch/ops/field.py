@@ -537,6 +537,60 @@ def field_carry(arr: torch.Tensor, own: int) -> torch.Tensor:
                         arr[11] - own, z, z, z])
 
 
+def field_entry_to_walker_init(t: FieldTables, entry: torch.Tensor):
+    """A field entry state as the exact walker's entering chain state
+    (init5, fb = [value, rev]) for the same region (field.py:1253).
+
+    The first event of the region is the first position whose entering
+    hash strictly undercuts the held one (an adoption, reference
+    SubSampler.cpp:374-388) or the expiry at the first position >= p
+    (SubSampler.cpp:391-399); adoption wins a tie. cur_pos is the
+    entry's last event (negative, local): the first emit's last
+    position + 1 is the start of the super-k-mer carried in."""
+    P = t.h_hi.numel()
+    j = torch.arange(P, dtype=_I32, device=entry.device)
+    lt = U.key(U.join(t.h_hi, t.h_lo)) < U.key(U.join(entry[1], entry[2]))
+    j_adopt = torch.where(lt & (j <= t.last_i), j, P).min()
+    p = entry[3]
+    j_exp = torch.where(p <= t.last_i, torch.clamp(p, min=0), P)
+    npos = torch.minimum(j_adopt, j_exp)
+    init5 = torch.stack([
+        torch.where(npos <= t.last_i, npos, -1),
+        (j_adopt > j_exp).to(_I32), (entry[0] >> 31) & 1, entry[4],
+        torch.zeros((), dtype=_I32, device=entry.device)]).to(_I32)
+    fb = torch.stack([entry[0] & _M30, (entry[0] >> 30) & 1])
+    return init5, fb
+
+
+def walker_exit_to_field_entry(t: FieldTables, scal: torch.Tensor,
+                               entry: torch.Tensor, k: int, m: int,
+                               own: int, thr_hi: int,
+                               thr_lo: int) -> torch.Tensor:
+    """The walker's exit state after a fallback tile as the next tile's
+    field entry, re-based by -own (field.py:1295). The state held after
+    the last event comes from the field tables there: an adoption at j
+    holds the entering m-mer (cv, h, p = j + W), a rescan the window
+    election (em, eh, p = ep + j + 1, the reference's position_min +=
+    i + 1, SubSampler.cpp:397). With no event the entry passes through."""
+    W = k - m + 1
+    P = t.h_hi.numel()
+    cur_pos, cur_typ = scal[1], scal[2]
+    no_ev = cur_pos < 0
+    pc = torch.clamp(cur_pos, 0, P - 1)
+    is_a = cur_typ == 0
+    val = torch.where(is_a, t.cv[pc], t.em[pc])
+    hh = torch.where(is_a, t.h_hi[pc], t.eh_hi[pc])
+    hl = torch.where(is_a, t.h_lo[pc], t.eh_lo[pc])
+    p_new = torch.where(is_a, pc + W, t.ep[pc] + pc + 1)
+    valb = val | (_sel(hh, hl, thr_hi, thr_lo).to(_I32) << 31)
+    z = torch.zeros((), dtype=_I32, device=scal.device)
+    return torch.stack([
+        torch.where(no_ev, entry[0], valb), torch.where(no_ev, entry[1], hh),
+        torch.where(no_ev, entry[2], hl),
+        torch.where(no_ev, entry[3], p_new) - own,
+        torch.where(no_ev, entry[4], cur_pos) - own, z, z, z]).to(_I32)
+
+
 def scan_resolve_single(slab: torch.Tensor, k: int, m: int, P: int,
                         sel_cap: int, length: int, thr_hi: int,
                         thr_lo: int) -> torch.Tensor:

@@ -11,14 +11,46 @@ no collision flag (``elect_block_flagged``'s is constant False).
 
 These are the plain versions the CUDA scan kernel (csrc/scan.cu) is
 held to; they run on any device.
+
+The exact fallback engine's successor tables (``ScanTables``,
+minimizer.py:42) come from the same scan: ``succ_tables`` derives every
+field from the scan kernel's output plus a W-position lookahead pass in
+plain torch ops (the XLA part of ``_block_tables``, minimizer.py:663-689).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from supersampler_tpu_torch.ops import u64 as U
 from supersampler_tpu_torch.ops.hashing import xxh64_u32
+
+_I32 = torch.int32
+_M30 = (1 << 30) - 1
+
+
+class ScanTables(NamedTuple):
+    """What the chain walker needs, per loop position i in [0, P - k)
+    (the valid region is i <= length - k - 1). u32 values are int32 bit
+    patterns; the init_* fields are 0-d tensors."""
+
+    nxt_pos_a: torch.Tensor    # int32 next event after an adoption at i, or -1
+    nxt_adopt_a: torch.Tensor  # bool: that next event is an adoption
+    nxt_pos_r: torch.Tensor    # the same after a rescan at i
+    nxt_adopt_r: torch.Tensor
+    val_a: torch.Tensor        # int32 minimizer value held after an adoption
+    rev_a: torch.Tensor        # bool strand
+    sel_a: torch.Tensor        # bool FHS select (hash <= threshold)
+    val_r: torch.Tensor        # the same after a rescan (election of i + 1)
+    rev_r: torch.Tensor
+    sel_r: torch.Tensor
+    init_nxt_pos: torch.Tensor  # first event after the window-0 election
+    init_nxt_adopt: torch.Tensor
+    init_val: torch.Tensor
+    init_rev: torch.Tensor
+    init_sel: torch.Tensor
 
 
 def unpack_2bit(packed: torch.Tensor, n: int) -> torch.Tensor:
@@ -77,3 +109,84 @@ def mmer_elect(canon, rev, hh, k: int, m: int, n: int):
         is_rev = torch.where(take, lr, is_rev)
         hmin = torch.where(take, h, hmin)
     return mini, pos, is_rev, U.key(hmin)
+
+
+def succ_tables(tabs, init, k: int, m: int, length: int, thr_hi: int,
+                thr_lo: int) -> ScanTables:
+    """ScanTables of one sequence from its field scan.
+
+    tabs: the scan's (h_hi, h_lo, cv, em, ep, eh_hi, eh_lo), P entries
+    each (ops/scan_kernel.py); init: its window-0 election (value|
+    rev<<30, position, hash hi, hash lo) as 0-d tensors. length: the
+    real sequence length the chain may reach; a non-final tile passes
+    the remaining length, so successors may point past the tile.
+
+    The successor of an event at j is the first i in (j, p] whose
+    entering hash is strictly below the held one (an adoption, checked
+    first, reference SubSampler.cpp:374) and otherwise the rescan at
+    i == p (SubSampler.cpp:391); p - j <= W always. Positions are walked
+    from W down to 1 so that the last write is the first event."""
+    h_hi, h_lo, cv, em, ep, eh_hi, eh_lo = tabs
+    W = k - m + 1
+    P = h_hi.numel()
+    n = P - k
+    dev = h_hi.device
+    last_i = length - k - 1
+    thr = U.key_int((thr_hi << 32) | thr_lo)
+    hk = U.key(U.join(h_hi, h_lo))
+    ha = hk[:n]
+    hr = U.key(U.join(eh_hi[:n], eh_lo[:n]))
+    j = torch.arange(n, dtype=_I32, device=dev)
+    pr = ep[:n] + j + 1
+    na_pos = torch.full((n,), -1, dtype=_I32, device=dev)
+    nr_pos = torch.full((n,), -1, dtype=_I32, device=dev)
+    na_adopt = torch.zeros(n, dtype=torch.bool, device=dev)
+    nr_adopt = torch.zeros(n, dtype=torch.bool, device=dev)
+    for w in range(W, 0, -1):
+        i = j + w
+        ok = i <= last_i
+        hi = hk[w : w + n]
+        lt = hi < ha
+        # adoption node: p = j + W, so i <= p for every w
+        ev = ok & (lt | (w == W))
+        na_pos = torch.where(ev, i, na_pos)
+        na_adopt = torch.where(ev, lt, na_adopt)
+        lt = hi < hr
+        ev = ok & ((lt & (i <= pr)) | (i == pr))
+        nr_pos = torch.where(ev, i, nr_pos)
+        nr_adopt = torch.where(ev, lt, nr_adopt)
+
+    # the window-0 election's successor: events at i = 0 .. W-1
+    init_val, init_p, init_hh, init_hl = init
+    h0 = U.key(U.join(init_hh, init_hl))
+    i = torch.arange(W, dtype=_I32, device=dev)
+    lt = hk[:W] < h0
+    ok = i <= last_i
+    ev = ((i <= init_p) & lt & ok) | ((i == init_p) & ~lt & ok)
+    first = torch.argmax(ev.to(torch.uint8))
+    found = ev.any()
+    return ScanTables(
+        nxt_pos_a=na_pos, nxt_adopt_a=na_adopt,
+        nxt_pos_r=nr_pos, nxt_adopt_r=nr_adopt,
+        val_a=cv[:n] & _M30, rev_a=((cv[:n] >> 30) & 1) == 1,
+        sel_a=ha <= thr,
+        val_r=em[:n] & _M30, rev_r=((em[:n] >> 30) & 1) == 1,
+        sel_r=hr <= thr,
+        init_nxt_pos=torch.where(found, first.to(_I32), -1),
+        init_nxt_adopt=found & lt[first],
+        init_val=init_val & _M30, init_rev=((init_val >> 30) & 1) == 1,
+        init_sel=h0 <= thr)
+
+
+def scan_tables_2d_packed(packed: torch.Tensor, k: int, m: int,
+                          padded_len: int, length: int, thr_hi: int,
+                          thr_lo: int) -> ScanTables:
+    """Scan one sequence's 2-bit packed codes (padded_len / 4 bytes)
+    into ScanTables (counterpart of minimizer.py:367): one launch of the
+    field scan, then succ_tables."""
+    # scan_kernel imports this module for the plain m-mer helpers
+    from supersampler_tpu_torch.ops.scan_kernel import scan_kernel
+
+    last_i = torch.tensor([length - k - 1], dtype=_I32, device=packed.device)
+    *tabs, _sync, init = scan_kernel(packed, k, m, padded_len, last_i)
+    return succ_tables(tabs, init[:, 0], k, m, length, thr_hi, thr_lo)

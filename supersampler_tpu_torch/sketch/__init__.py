@@ -1,7 +1,6 @@
 from supersampler_tpu.io.fasta import get_out_name
 from supersampler_tpu.io.gzip_exact import write_gzip_exact
-from supersampler_tpu_torch.sketch.pipeline import (TorchSubsampler,
-                                                    UnresolvedRecordError)
+from supersampler_tpu_torch.sketch.pipeline import TorchSubsampler
 from supersampler_tpu_torch.sketch.stats import print_stat
 
 
@@ -17,5 +16,4 @@ def subsample_file(ss, input_path: str, prefix: str) -> str:
     return out_path
 
 
-__all__ = ["TorchSubsampler", "UnresolvedRecordError", "print_stat",
-           "subsample_file"]
+__all__ = ["TorchSubsampler", "print_stat", "subsample_file"]

@@ -1,8 +1,8 @@
 """Sketch construction on the sync-field engine, in PyTorch.
 
-Counterpart of supersampler_tpu/sketch/pipeline.py (default field
-engine). Records stream from the FASTA in chunks and take one of three
-routes, with the JAX pipeline's thresholds:
+Counterpart of supersampler_tpu/sketch/pipeline.py. Records stream from
+the FASTA in chunks and take one of three routes, with the JAX
+pipeline's thresholds:
 
 * short records (padded size <= _SHORT_MAX) go in per-size batches
   through ``scan_resolve_batch``;
@@ -10,14 +10,20 @@ routes, with the JAX pipeline's thresholds:
 * longer records go through FieldChain, one 4 Mbp tile after another,
   carrying the machine state between tiles with ``field_carry``.
 
-Each route fetches one compact array per record or batch; the native C
-finisher (supersampler_tpu.native, csrc/spsp_finish.c) dedups,
+Where the field resolve cannot settle a region (status != 0: a sync
+desert such as a kilobase homopolymer, a per-lane list overflow) that
+region re-runs through the exact fallback engine: successor tables and
+the serial chain walk (ops/walker.py). FieldChain re-runs only the
+failing tile and converts the machine state at its edges; a failing
+single-tile record goes through a one-tile TiledDeviceChain; a failing
+short record goes through the walker on its own, in its place in the
+record order. ``scan_engine = "legacy"`` sends every record through the
+walker.
+
+Each route fetches one compact array per record, tile or batch; the
+native C finisher (supersampler_tpu.native, csrc/spsp_finish.c) dedups,
 reconstructs and serializes in record order, so the bytes match the
 reference. This is a plain sequential loop: dispatch, fetch, assemble.
-A record the field resolve cannot settle (status != 0: a sync desert
-such as a kilobase homopolymer, a per-lane list overflow) raises
-UnresolvedRecordError, since the exact fallback engine is not ported
-yet.
 """
 
 from __future__ import annotations
@@ -36,12 +42,17 @@ from supersampler_tpu.native import (NativeFinisher,
 from supersampler_tpu.oracle.subsampler import OracleSubsampler
 from supersampler_tpu_torch.ops.field import (_pow2_ge, field_carry,
                                               field_entry_init,
+                                              field_entry_to_walker_init,
                                               parse_batched_heads,
                                               parse_field_array,
                                               resolve_field,
                                               scan_field_2d_packed,
                                               scan_resolve_batch,
-                                              scan_resolve_single)
+                                              scan_resolve_single,
+                                              walker_exit_to_field_entry)
+from supersampler_tpu_torch.ops.minimizer import (scan_tables_2d_packed,
+                                                  succ_tables)
+from supersampler_tpu_torch.ops.walker import DeviceChain
 
 # tile geometry: sequences longer than one tile stream through fixed
 # (OWN + EXTRA)-position scans chained by a carried machine state
@@ -59,30 +70,37 @@ def padded_size(n: int, margin: int = 128) -> int:
     raise ValueError(f"not a single-tile sequence: {n}")
 
 
-class UnresolvedRecordError(RuntimeError):
-    """The field resolve left a record unresolved (status != 0)."""
-
-    def __init__(self, record: int, tile: int, status: int):
-        super().__init__(
-            f"record {record}, tile {tile}: field resolve status {status}; "
-            "exact fallback engine not yet ported")
-        self.record, self.tile, self.status = record, tile, status
-
-
 def _fetch(arr: torch.Tensor) -> np.ndarray:
     return arr.cpu().numpy()
 
 
-class FieldChain:
-    """Field scan + resolve of one sequence tile by tile, the machine
-    state carried between tiles (field_carry). slab: the record's 2-bit
+def _merge_tiles(parts, own: int):
+    """Per-tile compact 9-tuples (tile order) as one sequence-level
+    9-tuple with global positions; the tail is the last tile's."""
+    pos_l, last_l, val_l, rev_l = [], [], [], []
+    n_ev = 0
+    for t, (sp, sl, sv, sr, ev_t, last_pos_t, tv, tr, ts) in enumerate(
+            parts):
+        pos_l.append(sp + t * own)
+        last_l.append(sl + t * own)
+        val_l.append(sv)
+        rev_l.append(sr)
+        n_ev += ev_t
+    return (np.concatenate(pos_l), np.concatenate(last_l),
+            np.concatenate(val_l), np.concatenate(rev_l), n_ev,
+            last_pos_t + t * own, tv, tr, ts)
+
+
+class _TileChain:
+    """One sequence, tile by tile: tile t owns loop positions
+    [t*own, (t+1)*own) and scans own + extra positions; a state carried
+    on the device links each tile to the next. slab: the record's 2-bit
     codes with a 128-position leading halo (byte 32 holds position 0),
-    n_tiles * own + extra positions."""
+    n_tiles * own + extra positions. Subclasses give ``_tile``."""
 
     def __init__(self, slab: np.ndarray, n_tiles: int, k: int, m: int,
                  length: int, threshold: int, own: int, extra: int,
-                 sel_cap_guess: int, select_all: bool, device,
-                 record: int = 0):
+                 sel_cap_guess: int, select_all: bool, device):
         self._slab = slab
         self._n_tiles = n_tiles
         self._k, self._m = k, m
@@ -93,21 +111,69 @@ class FieldChain:
         self._guess = sel_cap_guess
         self._select_all = select_all
         self._device = device
-        self._record = record
         self.n_sel = 0
+        self.fallback_tiles = []     # tiles that took the exact walker
+
+    def _ext(self, t: int) -> torch.Tensor:
+        """Tile t's packed codes with the 128-position halo, on the
+        device."""
+        b0 = (t * self._own) >> 2
+        return torch.from_numpy(
+            self._slab[b0 : b0 + ((self._tile_p + 128) >> 2)]).to(
+                self._device)
+
+    def _tile(self, t: int, state):
+        """(compact 9-tuple of tile t, its n_sel, the next tile's state;
+        None after the last tile). state is None for tile 0."""
+        raise NotImplementedError
+
+    def compact(self):
+        """Run every tile in order and merge the per-tile compacts into
+        one sequence-level 9-tuple with global positions."""
+        parts = []
+        state = None
+        for t in range(self._n_tiles):
+            comp, n_sel, state = self._tile(t, state)
+            if not self._select_all:
+                self._guess = max(4096, 2 * n_sel)
+            parts.append(comp)
+        self.n_sel = sum(p[0].size for p in parts)
+        return _merge_tiles(parts, self._own)
+
+
+class TiledDeviceChain(_TileChain):
+    """The exact engine over one sequence (pipeline.py:141-251, without
+    device dedup): each tile's successor tables, scanned with the real
+    remaining length so successors may point past the tile, and a walk
+    of its own positions; the walk's state (init5, fb) carries to the
+    next tile on the device (DeviceChain.carry)."""
+
+    def _tile(self, t: int, carry):
+        own = self._own
+        tables = scan_tables_2d_packed(
+            self._ext(t)[32:], self._k, self._m, self._tile_p,
+            self._L - t * own, *self._thr)
+        init5, fb = carry if carry is not None else (None, None)
+        dc = DeviceChain(tables, own if self._select_all else self._guess,
+                         init5=init5, fb=fb, n_pad=own)
+        nxt = dc.carry(own) if t < self._n_tiles - 1 else None
+        return dc.compact(), dc.n_sel, nxt
+
+
+class FieldChain(_TileChain):
+    """Field scan + resolve tile by tile, the machine state carried
+    between tiles (field_carry). A tile the resolve cannot settle
+    re-runs alone through the exact walker, entered from and left to
+    the field path by the state converters; its index goes to
+    ``fallback_tiles``."""
 
     def _tile(self, t: int, entry):
-        """Resolve tile t from entry; returns (fetch array on device,
-        host copy, cap)."""
         k, m = self._k, self._m
         own, P_t = self._own, self._tile_p
-        b0 = (t * own) >> 2
-        ext = torch.from_numpy(
-            self._slab[b0 : b0 + ((P_t + 128) >> 2)]).to(self._device)
         last = t == self._n_tiles - 1
         # non-final tiles cap last_i at own-1 (the carry handoff point)
         length_t = (self._L - t * own) if last else (own + k)
-        ft = scan_field_2d_packed(ext[32:], k, m, P_t, length_t)
+        ft = scan_field_2d_packed(self._ext(t)[32:], k, m, P_t, length_t)
         if entry is None:
             entry = field_entry_init(ft, *self._thr)
         cap = _pow2_ge(own if self._select_all else self._guess)
@@ -115,34 +181,29 @@ class FieldChain:
             arr = resolve_field(ft, k, m, cap, entry, *self._thr)
             a = _fetch(arr)
             if int(a[0]) != 0:
-                raise UnresolvedRecordError(self._record, t, int(a[0]))
+                return self._fallback(t, ft, entry, cap)
             if int(a[1]) <= cap:
-                return arr, a, cap
+                _st, comp, n_sel = parse_field_array(a, cap)
+                return comp, n_sel, None if last else field_carry(arr, own)
             cap = _pow2_ge(int(a[1]))
 
-    def compact(self):
-        """Resolve every tile in order and merge the per-tile compacts
-        into one sequence-level 9-tuple with global positions."""
-        pos_l, last_l, val_l, rev_l = [], [], [], []
-        n_ev = 0
-        entry = None
-        for t in range(self._n_tiles):
-            arr, a, cap = self._tile(t, entry)
-            _st, comp, n_sel = parse_field_array(a, cap)
-            if not self._select_all:
-                self._guess = max(4096, 2 * n_sel)
-            entry = field_carry(arr, self._own)
-            (sp, sl, sv, sr, ev_t, last_pos_t, tv, tr, ts) = comp
-            base = t * self._own
-            pos_l.append(sp + base)
-            last_l.append(sl + base)
-            val_l.append(sv)
-            rev_l.append(sr)
-            n_ev += ev_t
-        self.n_sel = sum(a.size for a in pos_l)
-        return (np.concatenate(pos_l), np.concatenate(last_l),
-                np.concatenate(val_l), np.concatenate(rev_l), n_ev,
-                last_pos_t + base, tv, tr, ts)
+    def _fallback(self, t: int, ft, entry, cap: int):
+        """Tile t through the walker (pipeline.py:346-385). The
+        successor tables come from the field scan's own tables with the
+        real remaining length; no second scan runs."""
+        self.fallback_tiles.append(t)
+        k, m, own = self._k, self._m, self._own
+        tables = succ_tables(ft[:7], (ft.init_val, ft.init_p, ft.init_h_hi,
+                                      ft.init_h_lo),
+                             k, m, self._L - t * own, *self._thr)
+        init5, fb = field_entry_to_walker_init(ft, entry)
+        dc = DeviceChain(tables, own if self._select_all else max(cap, 4096),
+                         init5=init5, fb=fb, n_pad=own)
+        nxt = None
+        if t < self._n_tiles - 1:
+            nxt = walker_exit_to_field_entry(ft, dc.scal, entry, k, m, own,
+                                             *self._thr)
+        return dc.compact(), dc.n_sel, nxt
 
 
 class TorchSubsampler(OracleSubsampler):
@@ -162,6 +223,10 @@ class TorchSubsampler(OracleSubsampler):
     # tile geometry (class-level so tests can shrink it)
     _tile_own = _TILE_OWN
     _tile_extra = _TILE_EXTRA
+    # "field": the sync-field engine, with the exact walker as its
+    # fallback; "legacy": every record through successor tables and the
+    # walker (pipeline.py:504-508). Both give the same bytes.
+    scan_engine = "field"
     _CHUNK_BYTES = 4 << 20
     _CHUNK_RECS = 4096
 
@@ -175,7 +240,9 @@ class TorchSubsampler(OracleSubsampler):
         self._nf_obj = NativeFinisher(k, m, abundance)
         self._thr = (self.threshold >> 32, self.threshold & 0xFFFFFFFF)
         self._margin = 2 * (2 * k - m + 2) + 128
-        self._n_records = 0
+        # regions re-run through the exact walker, by route: tiles of
+        # FieldChain, single-tile records, records of a short batch
+        self.fallbacks = {"tile": 0, "single": 0, "batch": 0}
 
     # ---- geometry ----
     def _plan_geometry(self, n_raw: int):
@@ -196,12 +263,17 @@ class TorchSubsampler(OracleSubsampler):
         """Clean + 2-bit pack every record of a chunk: one C call per
         short-record size group, one per longer record. Returns
         (routes, groups) with routes[i] one of ("skip",),
-        ("grp", group, slot) or ("field", ref, slab, L, own, n_tiles)."""
+        ("grp", group, slot) or (engine, ref, slab, L, own, n_tiles),
+        engine "field" or "legacy"."""
         k = self.k
         routes = [None] * len(spans)
         bygroup = {}          # own -> [(rec_idx, start, end)]
         for i, (s, e) in enumerate(spans):
             n_raw = e - s
+            if self.scan_engine == "legacy":
+                routes[i] = self._prep_legacy(
+                    np.frombuffer(data, np.uint8, n_raw, s))
+                continue
             if n_raw + self._margin <= self._SHORT_MAX:
                 own = max(1024, padded_size(n_raw, self._margin))
                 bygroup.setdefault(own, []).append((i, s, e))
@@ -238,12 +310,31 @@ class TorchSubsampler(OracleSubsampler):
             lengths[:R] = np.where(lens >= k, lens, 0)
             g = {"own": own, "pack": pack, "lengths": lengths,
                  "ref_pool": ref_pool, "ref_offs": ref_offs,
-                 "ref_lens": lens, "recs": [i for i, _, _ in members]}
+                 "ref_lens": lens}
             for slot, (i, _s, _e) in enumerate(members):
                 routes[i] = (("skip",) if lengths[slot] == 0
                              else ("grp", g, slot))
             groups.append(g)
         return routes, groups
+
+    def _prep_legacy(self, raw: np.ndarray):
+        """Clean + pack one record for the exact engine (pipeline.py:
+        588-618): one tile of padded_size(L, margin) positions when it
+        fits a tile, else tiles of _tile_own. Returns its route."""
+        k, own, extra = self.k, self._tile_own, self._tile_extra
+        n_raw = raw.size
+        if n_raw + self._margin <= own:
+            padded = padded_size(n_raw, self._margin)
+        else:
+            padded = -(-(n_raw - k) // own) * own + extra
+        ref, slab, L = clean_pack_native(raw, padded, 128)
+        if L < k:
+            return ("skip",)
+        if L + self._margin <= own:
+            return ("legacy", ref, slab, L, padded_size(L, self._margin), 1)
+        n_tiles = max(1, -(-(L - k) // own))
+        return ("legacy", ref, slab[: (128 + n_tiles * own + extra) >> 2],
+                L, own, n_tiles)
 
     def _resolve_group(self, g) -> None:
         """Scan + resolve one short-record batch (re-dispatched with a
@@ -270,14 +361,33 @@ class TorchSubsampler(OracleSubsampler):
             self._batch_sel_rate = max(n_total / positions, 1e-6)
 
     def _ingest_run(self, g, a: int, b: int) -> None:
-        """Assemble group g's slots [a, b): one vectorized counter pass
-        and one C ingest for the whole run."""
+        """Assemble group g's slots [a, b) in record order: a record the
+        batch resolve left unresolved goes through the walker on its
+        own, in its place (pipeline.py:1359-1375); the records between
+        go in resolved runs."""
+        for j in (a + np.flatnonzero(g["heads"][a:b, 0])).tolist():
+            if j > a:
+                self._ingest_resolved(g, a, j)
+            self._ingest_fallback(g, j)
+            a = j + 1
+        if a < b:
+            self._ingest_resolved(g, a, b)
+
+    def _ingest_fallback(self, g, j: int) -> None:
+        """Group g's slot j through the exact engine at the group's
+        padded size."""
+        L = int(g["ref_lens"][j])
+        o = int(g["ref_offs"][j])
+        self.read_kmer += L - self.k + 1
+        self.fallbacks["batch"] += 1
+        comp, n_sel = self._walk_single(g["pack"][j], g["own"], L)
+        self._sel_cap_guess = max(4096, 2 * n_sel)
+        self._assemble_compact(g["ref_pool"][o : o + L], *comp)
+
+    def _ingest_resolved(self, g, a: int, b: int) -> None:
+        """Assemble resolved slots [a, b) of group g: one vectorized
+        counter pass and one C ingest for the whole run."""
         heads = g["heads"][a:b]
-        failed = np.nonzero(heads[:, 0])[0]
-        if failed.size:
-            j = a + int(failed[0])
-            raise UnresolvedRecordError(
-                self._n_records + g["recs"][j], 0, int(heads[failed[0], 0]))
         k = self.k
         live = g["lengths"][a:b] > 0
         lens = g["ref_lens"][a:b]
@@ -296,8 +406,10 @@ class TorchSubsampler(OracleSubsampler):
             o[a : b + 1] - s0, tail_last, heads[:, 4].view(np.uint32),
             heads[:, 5].astype(np.uint8))
 
-    def _single(self, rec: int, slab: np.ndarray, L: int, own: int):
-        """Compact 9-tuple and n_sel of a single-tile record."""
+    def _single(self, slab: np.ndarray, L: int, own: int):
+        """Compact 9-tuple and n_sel of a single-tile record; an
+        unresolved one goes through a one-tile TiledDeviceChain
+        (pipeline.py:1404-1411)."""
         cap = _pow2_ge(max(own if self.s <= 1 else self._sel_cap_guess,
                            4096))
         dev_slab = torch.from_numpy(slab).to(self.device)
@@ -306,11 +418,33 @@ class TorchSubsampler(OracleSubsampler):
                 dev_slab, self.k, self.m, own + self._tile_extra, cap, L,
                 *self._thr))
             if int(a[0]) != 0:
-                raise UnresolvedRecordError(rec, 0, int(a[0]))
+                self.fallbacks["single"] += 1
+                return self._chain(TiledDeviceChain, slab, 1, L, own,
+                                   max(4096, cap))
             if int(a[1]) <= cap:
                 _st, comp, n_sel = parse_field_array(a, cap)
                 return comp, n_sel
             cap = _pow2_ge(int(a[1]))
+
+    def _chain(self, cls, slab, n_tiles: int, L: int, own: int,
+               guess: int | None = None):
+        """Compact 9-tuple and n_sel of a FieldChain or TiledDeviceChain
+        over the record's slab."""
+        chain = cls(slab, n_tiles, self.k, self.m, L, self.threshold, own,
+                    self._tile_extra, guess or self._sel_cap_guess,
+                    self.s <= 1, self.device)
+        comp = chain.compact()
+        self.fallbacks["tile"] += len(chain.fallback_tiles)
+        return comp, chain.n_sel
+
+    def _walk_single(self, packed: np.ndarray, P: int, L: int):
+        """Compact 9-tuple and n_sel of a record through the exact engine
+        as one walk over P positions (_scan_chain_packed,
+        pipeline.py:59-70). packed: P / 4 bytes, no halo."""
+        t = scan_tables_2d_packed(torch.from_numpy(packed).to(self.device),
+                                  self.k, self.m, P, L, *self._thr)
+        dc = DeviceChain(t, P if self.s <= 1 else self._sel_cap_guess)
+        return dc.compact(), dc.n_sel
 
     def _sketch_chunk(self, data: bytes, spans) -> None:
         routes, groups = self._prep_chunk(data, spans)
@@ -333,22 +467,22 @@ class TorchSubsampler(OracleSubsampler):
                 run = None
             if p[0] == "skip":
                 continue
-            _, ref, slab, L, own, n_tiles = p
-            rec = self._n_records + i
+            engine, ref, slab, L, own, n_tiles = p
             self.read_kmer += L - k + 1
-            if n_tiles > 1:
-                chain = FieldChain(
-                    slab, n_tiles, k, self.m, L, self.threshold, own,
-                    self._tile_extra, self._sel_cap_guess, self.s <= 1,
-                    self.device, record=rec)
-                comp, n_sel = chain.compact(), chain.n_sel
+            if engine == "legacy" and n_tiles == 1:
+                comp, n_sel = self._walk_single(
+                    slab[32 : 32 + (own >> 2)], own, L)
+            elif engine == "legacy":
+                comp, n_sel = self._chain(TiledDeviceChain, slab, n_tiles,
+                                          L, own)
+            elif n_tiles > 1:
+                comp, n_sel = self._chain(FieldChain, slab, n_tiles, L, own)
             else:
-                comp, n_sel = self._single(rec, slab, L, own)
+                comp, n_sel = self._single(slab, L, own)
             self._sel_cap_guess = max(4096, 2 * n_sel)
             self._assemble_compact(ref, *comp)
         if run is not None:
             self._ingest_run(*run)
-        self._n_records += len(spans)
 
     def sketch_file(self, input_path: str):
         """Sketch one FASTA file; returns the uncompressed sketch bytes,

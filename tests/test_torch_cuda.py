@@ -62,7 +62,36 @@ def test_sweep_kernel_equals_plain_in_resolve(cuda, s):
     assert torch.equal(got, want)
 
 
-def test_golden_sketch_on_cuda(cuda, tmp_path):
+@pytest.mark.parametrize("s", [1.0, 1000.0])
+def test_walk_kernel_equals_plain(cuda, s):
+    """The walk kernel == walk_plain on every output, for a sequence's
+    first walk and for the next tile entered from its carry."""
+    from supersampler_tpu_torch.ops import walker as TW
+    from supersampler_tpu_torch.ops.minimizer import scan_tables_2d_packed
+
+    k, m, own, P, L = 31, 11, 1 << 15, (1 << 15) + 512, 100000
+    thr = compute_threshold(k, m, s)
+    thr = (thr >> 32, thr & 0xFFFFFFFF)
+    codes = np.random.default_rng(3).integers(0, 4, 2 * own + 512,
+                                             dtype=np.uint8)
+    codes[5000:8000] = 2
+    init5 = fb = None
+    for t in range(2):
+        c = torch.from_numpy(codes[t * own : t * own + P].copy())
+        tab = scan_tables_2d_packed(pack_2bit(c).to(cuda), k, m, P,
+                                    L - t * own, *thr)
+        packed = TW.pack_succ(tab, own)
+        if init5 is None:
+            init5, fb = TW._init5_from_tables(tab), TW._fb_from_tables(tab)
+        got = TW.walk_kernel(packed, init5)
+        want = TW.walk_plain(packed, init5)
+        for a, b in zip(got, want, strict=True):
+            assert torch.equal(a, b)
+        assert int(got[4][0]) > 1000      # events walked
+        init5, fb = TW._carry_next(got[4], tab, fb, own)
+
+
+def _golden_big(tmp_path, device, engine):
     here = os.path.dirname(os.path.abspath(__file__))
     spec = importlib.util.spec_from_file_location(
         "make_data", os.path.join(here, "make_data.py"))
@@ -72,5 +101,14 @@ def test_golden_sketch_on_cuda(cuda, tmp_path):
     with gzip.open(os.path.join(here, "golden",
                                 "sketch_big_k31_m11_s100_a1.gz")) as f:
         golden = f.read()
-    ss = TorchSubsampler(k=31, m=11, s=100.0, device=cuda)
+    ss = TorchSubsampler(k=31, m=11, s=100.0, device=device)
+    ss.scan_engine = engine
     assert ss.sketch_file(data["big"]) == golden
+
+
+def test_golden_sketch_on_cuda(cuda, tmp_path):
+    _golden_big(tmp_path, cuda, "field")
+
+
+def test_golden_sketch_on_cuda_legacy_engine(cuda, tmp_path):
+    _golden_big(tmp_path, cuda, "legacy")

@@ -1,7 +1,7 @@
 """Port sketch pipeline and CLI (supersampler_tpu_torch.sketch / .cli)
 on the CPU: byte-equal to the golden sketches, the CLI goldens and the
-JAX TpuSubsampler on each record route and on a mix of them; an
-unresolvable record raises the named error."""
+JAX TpuSubsampler on each record route and on a mix of them (the
+exact fallback engine's cases are in test_torch_fallback.py)."""
 
 import gzip
 import io
@@ -16,8 +16,7 @@ import torch
 from supersampler_tpu.io.fasta import read_fasta_spans
 from supersampler_tpu.sketch.pipeline import TpuSubsampler
 from supersampler_tpu_torch.cli import sub_sampler as cli
-from supersampler_tpu_torch.sketch import (TorchSubsampler,
-                                           UnresolvedRecordError)
+from supersampler_tpu_torch.sketch import TorchSubsampler
 
 _GOLD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 with open(os.path.join(_GOLD, "meta.json")) as _f:
@@ -132,16 +131,3 @@ def test_port_bytes_equal_jax_pipeline(routes, lens, s, tmp_path):
                      if routes == "mixed" else {routes})
     want = jax_cls(k=31, m=11, s=s).sketch_file(path)
     assert port.sketch_file(path) == want
-
-
-def test_sync_desert_raises_unresolved_record(tmp_path):
-    """The 3 kb poly-T record of tests/test_field.py starves the sync
-    passes; the port names the record instead of falling back."""
-    path = str(tmp_path / "desert.fa")
-    seq = _random_seq(13, 500) + "T" * 3000 + _random_seq(14, 500)
-    _write_fasta(path, [_random_seq(3, 2000), seq])
-    ss = TorchSubsampler(k=31, m=11, s=2.0, device="cpu")
-    with pytest.raises(UnresolvedRecordError,
-                       match="exact fallback engine not yet ported") as e:
-        ss.sketch_file(path)
-    assert e.value.record == 1 and e.value.tile == 0
