@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one sketch goes, per layer, on the port.
 
-    python3 chip_profile.py [--seed N] [--runs 3] [--device cuda]
+    python3 chip_profile.py [--seed N] [--runs 3] [--device cuda] [--fused]
 
 Sketches the two bench cells of chip_smoke.py (8 x 4,194,000 bp genome
 records and 10,000 x 1 kb reads, k=31, m=11, s=1000, random sequence
@@ -10,8 +10,10 @@ from --seed) with ``TorchSubsampler.sketch_file``: one warm-up run, then
 assemble, serialize), then one run under ``torch.profiler`` that lists
 the device events by summed time and the device's busy share of the
 profiled wall. The device layer's timer includes the fetch, which waits
-for the device. Smaller corpora (--n-rec, --glen, --n-reads) and
---device cpu check the script itself without a card.
+for the device. --fused sets SPSP_FUSED=1, so the single and batch
+routes take the v2 path (ops/fused.py; CUDA only). Smaller corpora
+(--n-rec, --glen, --n-reads) and --device cpu check the script itself
+without a card.
 """
 
 from __future__ import annotations
@@ -133,14 +135,19 @@ def main(argv=None) -> int:
     ap.add_argument("--n-rec", type=int, default=8)
     ap.add_argument("--glen", type=int, default=TILE_L)
     ap.add_argument("--n-reads", type=int, default=10_000)
+    ap.add_argument("--fused", action="store_true",
+                    help="profile the v2 path (SPSP_FUSED=1)")
     args = ap.parse_args(argv)
+    if args.fused:
+        os.environ["SPSP_FUSED"] = "1"
     device = torch.device(args.device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             print("chip_profile: torch.cuda.is_available() is false",
                   file=sys.stderr)
             return 2
-        print(gpu_line(), flush=True)
+        print(f"{gpu_line()}; path {'v2' if args.fused else 'v1'}",
+              flush=True)
     from supersampler_tpu_torch.sketch import pipeline
 
     acc = defaultdict(float)

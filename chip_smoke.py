@@ -5,19 +5,23 @@
 
 Phases, each printing its result; any failure exits non-zero:
   0. device: the card's name and power limit (nvidia-smi);
-  1. build: nvcc builds the scan, sweep and walk kernels from csrc/, one
-     process per source, all started together;
+  1. build: nvcc builds the scan (v1 and v2), sweep and walk kernels
+     from csrc/, one process per source, all started together;
   2. kernels against their plain PyTorch versions on the card, bit-equal
-     (integer outputs, tolerance 0): the scan on a full 4 Mbp tile at
-     (k, m) = (31, 11), (63, 15), (15, 5) and on a 1,024 x 1 kb read
-     batch; every sweep of that tile's resolve and of the read batch's
-     resolve; the walk over a full tile's successor words at s = 1000
-     and s = 1, and over the next tile entered from its carry. Kernel
-     and plain times come from CUDA events, as does the time of the
-     successor-table pass at the tile;
+     (integer outputs, tolerance 0): the scan and the v2 scan on a full
+     4 Mbp tile at (k, m) = (31, 11), (63, 15), (15, 5) and on a
+     1,024 x 1 kb read batch; every sweep ("lane" layout) of that tile's
+     and that batch's v1 resolves and every "col" sweep of their v2
+     resolves (fused_single / fused_batch), whose fetch arrays must
+     equal v1's there, on the tile with a 3 kb homopolymer (prefix
+     passes 2..4) and at s = 1; the walk over a full tile's successor
+     words at s = 1000 and s = 1, and over the next tile entered from
+     its carry. Kernel and plain times come from CUDA events, as does
+     the time of the successor-table pass at the tile;
   3. goldens: the 10 tests/golden sketches, and the CLI's compressed
-     output and stdout, from sketches made on the card; the 10 again
-     through the exact engine (scan_engine = "legacy");
+     output and stdout, from sketches made on the card, on v1 and again
+     on v2 (SPSP_FUSED=1); the 10 through the exact engine
+     (scan_engine = "legacy");
   4. real size: a 5 Mbp genome (two tiles) and 2,000 x 1 kb reads give
      the same bytes on the card and on the CPU; a desert corpus (a
      12 Mbp record with a 3 kb poly-T in tile 1, a 100 kb record with a
@@ -26,10 +30,17 @@ Phases, each printing its result; any failure exits non-zero:
      on the CPU and through the legacy engine on the card; the bench
      corpus (8 x 4,194,000 bp, 10,000 x 1 kb reads, k=31, m=11, s=1000)
      runs through the CLI on the card, and its genome again through the
-     legacy engine, whose sketch must hash the same. Each of these
-     paths runs with the launch counters reset before and read after.
-The line before the last is the kernel table; the last line is
-{"ok": true, "device": {...}}. Needs one CUDA card; no network.
+     legacy engine, whose sketch must hash the same. The desert corpus
+     and the bench corpus run again on v2 (SPSP_FUSED=1): same bytes,
+     fallbacks on the single and batch routes, v1 and v2 walls side by
+     side. Each of these paths runs with the launch counters reset
+     before and read after.
+After the phases no supersampler_tpu module may have been imported.
+The line before the last is the kernel table, each kernel with its
+time, its plain version's time and its bound (the larger of the bytes
+it must move over the HBM rate and its 32-bit ALU operations over the
+card's scalar peak); the last line is {"ok": true, "device": {...}}.
+Needs one CUDA card; no network.
 """
 
 from __future__ import annotations
@@ -44,7 +55,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import redirect_stdout
+from contextlib import contextmanager, redirect_stdout
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -56,6 +67,17 @@ TILE_P = (1 << 22) + 512          # one 4 Mbp tile: own + extra positions
 TILE_L = 4_194_000                # the bench corpus's record length
 K, M, S = 31, 11, 1000.0
 _ACGT = np.frombuffer(b"ACGT", np.uint8)
+
+# bounds (H100 SXM datasheet): HBM at 3.35 TB/s; the kernels' work is
+# 32-bit integer ALU, for which the datasheet gives no rate of its own,
+# so the float32 rate outside the tensor cores (67 T/s)
+# stands in: a ceiling, so the bound stays a floor
+HBM_BPS = 3.35e12
+ALU_OPS = 67e12
+# 32-bit operations per unit of work, counted low from csrc/
+OPS_HASH = 40        # one XXHash64 of an m-mer (five 64-bit multiplies)
+OPS_FOLD = 8         # one step of the election fold
+OPS_STEP = 10        # one sweep column step, one sweep event, one walk event
 
 
 def log(msg: str) -> None:
@@ -105,6 +127,7 @@ class SweepCheck:
     def __init__(self):
         self.n = 0
         self.first = None
+        self.first_out = None
         self.max_abs_err = 0
 
     def __call__(self, tabs, se, st0, *rest):
@@ -118,6 +141,7 @@ class SweepCheck:
         self.max_abs_err = max(self.max_abs_err, err)
         if self.first is None:
             self.first = (tabs, se.clone(), st0.clone(), rest)
+            self.first_out = got
         self.n += 1
         return got
 
@@ -135,6 +159,47 @@ def check_scan(packed, k, m, P_rec, last_i) -> int:
 
 def time_pair(kernel_fn, plain_fn, iters=(20, 3)):
     return cuda_ms(kernel_fn, iters[0]), cuda_ms(plain_fn, iters[1])
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over the ALU rate."""
+    tb, to = nbytes / HBM_BPS, ops / ALU_OPS
+    return {"bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+def scan_bound(P: int, n_rec: int, k: int, m: int, v2: bool) -> dict:
+    """Read the packed codes (and v1's bounds), write seven int32 tables,
+    v1's sync bytes or v2's first-sync words, and the records' init;
+    per position one hash, the fold's W - 1 steps and one sync compare."""
+    W = k - m + 1
+    out = 28 * P + (4 * (P // 256) if v2 else P) + 16 * n_rec
+    nbytes = P // 4 + (0 if v2 else 4 * n_rec) + out
+    return bound(nbytes, P * (OPS_HASH + OPS_FOLD * (W - 1) + 3))
+
+
+def sweep_bound(se, st0, xs, capl: int) -> dict:
+    """Read the columns each active lane steps through (hash hi/lo) and
+    one word per event, the lane vectors, and write the exit state and
+    the lists; a step per column and per event."""
+    start, end, active, j0, lastiv = se.to(torch.int64)
+    stop = torch.minimum(end.clamp(max=256), lastiv - j0 + 1)
+    cols = int(((stop - start.clamp(min=0)).clamp(min=0)
+                * (active != 0)).sum())
+    events = int((xs[5] - st0[5]).to(torch.int64).sum())
+    n = se.shape[1]
+    nbytes = 8 * cols + 4 * events + 4 * (11 + 7) * n + 12 * capl * n
+    return bound(nbytes, OPS_STEP * (cols + events))
+
+
+def walk_bound(got) -> dict:
+    """Read one successor word per event and write three words per emit,
+    the block counts and the scalars; a step per event."""
+    _ei, _el, _es, cnt, scal = got
+    events, emits = int(scal[0]), int(cnt.sum())
+    return bound(4 * events + 12 * emits + 4 * cnt.numel() + 4 * 11,
+                 OPS_STEP * events)
 
 
 def phase_kernels(rng, device, tile_p=TILE_P, tile_l=TILE_L,
@@ -165,6 +230,7 @@ def phase_kernels(rng, device, tile_p=TILE_P, tile_l=TILE_L,
             f"(k, m) = ({k}, {m}): bit-equal (max_abs_err {err})")
     last_i = torch.tensor([tile_l - K - 1], dtype=torch.int32,
                           device=device)
+    res["scan"].update(scan_bound(tile_p, 1, K, M, False))
     if timing:
         res["scan"]["ms"], res["scan"]["plain_ms"] = time_pair(
             lambda: scan_kernel(packed, K, M, tile_p, last_i),
@@ -181,8 +247,9 @@ def phase_kernels(rng, device, tile_p=TILE_P, tile_l=TILE_L,
     log(f"  sweep kernel == plain on all {chk.n} sweeps of the tile's "
         f"resolve (status {int(got[0])}, n_sel {int(got[1])}): bit-equal "
         f"(max_abs_err {chk.max_abs_err})")
+    tabs, se, st0, rest = chk.first
+    res["sweep"].update(sweep_bound(se, st0, chk.first_out[0], rest[3]))
     if timing:
-        tabs, se, st0, rest = chk.first
         res["sweep"]["ms"], res["sweep"]["plain_ms"] = time_pair(
             lambda: F.sweep_kernel(tabs, se, st0, *rest),
             lambda: F.sweep_plain(tabs, se, st0, *rest))
@@ -263,6 +330,8 @@ def phase_walk(rng, device, tile_p=TILE_P, timing=True):
                 f"({'entered from the carry' if t else 'window-0 entry'}): "
                 f"{int(got[4][0])} events, {int(got[3].sum())} emits, "
                 f"bit-equal (max_abs_err {err})")
+            if t == 0 and not key:
+                res.update(walk_bound(got))
             if t == 0 and timing:
                 res["ms" + key], res["plain_ms" + key] = time_pair(
                     lambda: TW.walk_kernel(words, init5),
@@ -275,9 +344,130 @@ def phase_walk(rng, device, tile_p=TILE_P, timing=True):
     return res
 
 
-def phase_goldens(device, workdir, engine="field") -> None:
+def phase_fused(rng, device, tile_p=TILE_P, tile_l=TILE_L, n_reads=1024,
+                timing=True):
+    """Phase 2, v2: the v2 scan against scan2_plain at the tile (three
+    (k, m)) and on the read batch; every "col" sweep of fused_single /
+    fused_batch against sweep_plain; the v2 fetch arrays against v1's at
+    the tile, on the tile with a 3 kb homopolymer (passes 2..4 run), at
+    s = 1 and on the batch. Returns {"scan2": ..., "sweep_col": ...}
+    with max_abs_err, bounds and times."""
+    from supersampler_tpu_torch.ops import field as F
+    from supersampler_tpu_torch.ops import fused as FU
+    from supersampler_tpu_torch.ops.minimizer import pack_2bit
+    from supersampler_tpu_torch.sketch import TorchSubsampler
+
+    res = {"scan2": {"max_abs_err": 0}, "sweep_col": {"max_abs_err": 0}}
+
+    def check_scan2(packed, k, m, P_rec, what):
+        err = max_abs_err(FU.scan2_kernel(packed, k, m, P_rec),
+                          FU.scan2_plain(packed, k, m, P_rec))
+        if err:
+            raise AssertionError(f"scan2 kernel != plain at (k, m) = "
+                                 f"({k}, {m}) on {what}: max_abs_err {err}")
+        log(f"  scan2 kernel == plain on {what} at (k, m) = ({k}, {m}): "
+            f"bit-equal (max_abs_err {err})")
+
+    def resolve_both(name, v2, v1):
+        """v2 with its sweeps checked against sweep_plain == v1."""
+        chk = SweepCheck()
+        got = v2(chk)
+        want = v1()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: v2 fetch array != v1's")
+        res["sweep_col"]["max_abs_err"] = max(
+            res["sweep_col"]["max_abs_err"], chk.max_abs_err)
+        log(f"  {name}: v2 fetch array == v1's (status {int(got[0])}, "
+            f"n_sel {int(got[1])}); all {chk.n} col sweeps kernel == "
+            f"plain (max_abs_err {chk.max_abs_err})")
+        return chk
+
+    codes = torch.zeros(tile_p, dtype=torch.uint8)
+    codes[:tile_l] = torch.from_numpy(
+        rng.integers(0, 4, tile_l, dtype=np.uint8))
+    packed = pack_2bit(codes).to(device)
+    for k, m in ((31, 11), (63, 15), (15, 5)):
+        check_scan2(packed, k, m, tile_p, f"the {tile_p}-position tile")
+    res["scan2"].update(scan_bound(tile_p, 1, K, M, True))
+    if timing:
+        res["scan2"]["ms"], res["scan2"]["plain_ms"] = time_pair(
+            lambda: FU.scan2_kernel(packed, K, M, tile_p),
+            lambda: FU.scan2_plain(packed, K, M, tile_p))
+
+    halo = torch.zeros(32, dtype=torch.uint8, device=device)
+    for s, cap, what, mut in (
+            (S, 4096, "tile", None),
+            (S, 4096, "tile with a 3 kb homopolymer",
+             (tile_l // 4, tile_l // 4 + 3000)),
+            (1.0, 1 << 20, "tile at s = 1", None)):
+        thr = TorchSubsampler(k=K, m=M, s=s, device=device).threshold
+        thr_w = (thr >> 32, thr & 0xFFFFFFFF)
+        c = codes.clone()
+        if mut:
+            c[mut[0] : mut[1]] = 0
+        pk = pack_2bit(c).to(device)
+        slab = torch.cat([halo, pk])
+
+        def v1():
+            t = F.scan_field_2d_packed(pk, K, M, tile_p, tile_l)
+            return F.resolve_field(t, K, M, cap, F.field_entry_init(t, *thr_w),
+                                   *thr_w)
+
+        chk = resolve_both(what, lambda sw: FU.fused_single(
+            slab, K, M, tile_p, cap, tile_l, *thr_w, sweep=sw), v1)
+        if mut and chk.n != 5:
+            raise AssertionError(f"{what}: passes 2..4 did not run "
+                                 f"({chk.n} sweeps)")
+        if what == "tile":
+            tabs, se, st0, rest = chk.first
+            res["sweep_col"].update(sweep_bound(se, st0, chk.first_out[0],
+                                                rest[3]))
+            if timing:
+                res["sweep_col"]["ms"], res["sweep_col"]["plain_ms"] = \
+                    time_pair(lambda: F.sweep_kernel(tabs, se, st0, *rest),
+                              lambda: F.sweep_plain(tabs, se, st0, *rest))
+
+    thr = TorchSubsampler(k=K, m=M, s=S, device=device).threshold
+    thr_w = (thr >> 32, thr & 0xFFFFFFFF)
+    P_rec = 2048
+    lens = rng.integers(900, 1001, n_reads).astype(np.int32)
+    rc = np.zeros((n_reads, P_rec), np.uint8)
+    for i, L in enumerate(lens):
+        rc[i, :L] = rng.integers(0, 4, L, dtype=np.uint8)
+    bpacked = pack_2bit(torch.from_numpy(rc.reshape(-1))).to(device)
+    lengths = torch.from_numpy(lens).to(device)
+    for k, m in ((31, 11), (63, 15), (15, 5)):
+        check_scan2(bpacked, k, m, P_rec, f"the {n_reads} x 1 kb batch")
+    bpk = bpacked.view(n_reads, -1)
+    chk = resolve_both(f"{n_reads} x 1 kb batch", lambda sw: FU.fused_batch(
+        bpk, K, M, P_rec, 1 << 14, lengths, *thr_w, sweep=sw),
+        lambda: F.resolve_field_batched(F.scan_field_batched(
+            bpk, K, M, P_rec, lengths), K, M, 1 << 14, P_rec, *thr_w))
+    if timing:
+        tabs, se, st0, rest = chk.first
+        res["scan2_reads"] = dict(zip(("ms", "plain_ms"), time_pair(
+            lambda: FU.scan2_kernel(bpacked, K, M, P_rec),
+            lambda: FU.scan2_plain(bpacked, K, M, P_rec))))
+        res["sweep_col_reads"] = dict(zip(("ms", "plain_ms"), time_pair(
+            lambda: F.sweep_kernel(tabs, se, st0, *rest),
+            lambda: F.sweep_plain(tabs, se, st0, *rest))))
+    return res
+
+
+@contextmanager
+def fused_env():
+    """SPSP_FUSED=1 (the v2 path) inside the block."""
+    os.environ["SPSP_FUSED"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("SPSP_FUSED", None)
+
+
+def phase_goldens(device, workdir, engine="field", v2=False) -> None:
     """Phase 3: the golden sketches, and for the field engine the CLI,
-    sketched on device."""
+    sketched on device; v2: under SPSP_FUSED=1, which must launch the
+    v2 scan."""
     import importlib.util
 
     from supersampler_tpu_torch.cli import sub_sampler as cli
@@ -292,6 +482,8 @@ def phase_goldens(device, workdir, engine="field") -> None:
     data = make_data.make_all(os.path.join(workdir, "data"))
     with open(os.path.join(gold, "meta.json")) as f:
         meta = json.load(f)
+    label = f"{engine} engine{', v2' if v2 else ''}"
+    reset_launches()
     for cfg in meta["sketches"]:
         with gzip.open(os.path.join(gold, cfg["file"]), "rb") as f:
             want = f.read()
@@ -300,10 +492,12 @@ def phase_goldens(device, workdir, engine="field") -> None:
                              abundance=cfg["a"], device=device)
         ss.scan_engine = engine
         if ss.sketch_file(data[cfg["dataset"]]) != want:
-            raise AssertionError(f"golden {cfg['file']} differs "
-                                 f"({engine} engine)")
-    log(f"  all {len(meta['sketches'])} golden sketches equal ({engine} "
-        f"engine)")
+            raise AssertionError(f"golden {cfg['file']} differs ({label})")
+    counts = read_launches()
+    log(f"  all {len(meta['sketches'])} golden sketches equal ({label}); "
+        f"launches {counts}")
+    if v2 and counts["scan2"] <= 0:
+        raise AssertionError("the v2 scan never launched under SPSP_FUSED=1")
     if engine != "field":
         return
     cwd = os.getcwd()
@@ -323,7 +517,8 @@ def phase_goldens(device, workdir, engine="field") -> None:
     if rc != 0 or mine != want_gz or buf.getvalue() != want_out:
         raise AssertionError("CLI output differs from cli_simple.gz / "
                              "cli_sub_sampler_stdout.txt")
-    log("  CLI -i simple -s 10: cli_simple.gz bytes and stdout equal")
+    log(f"  CLI -i simple -s 10: cli_simple.gz bytes and stdout equal "
+        f"({label})")
 
 
 def write_fasta(path, codes_rows, prefix, width=None) -> int:
@@ -367,21 +562,23 @@ def phase_cpu_parity(rng, device, workdir, glen=5_000_000, n_reads=2000):
             f"cpu {out['cpu_s']:.3f} s)")
 
 
-def reset_launches() -> None:
+def _wrappers() -> dict:
     from supersampler_tpu_torch.ops.field import sweep_kernel
+    from supersampler_tpu_torch.ops.fused import scan2_kernel
     from supersampler_tpu_torch.ops.scan_kernel import scan_kernel
     from supersampler_tpu_torch.ops.walker import walk_kernel
 
-    scan_kernel.launches = sweep_kernel.launches = walk_kernel.launches = 0
+    return {"scan": scan_kernel, "scan2": scan2_kernel,
+            "sweep": sweep_kernel, "walk": walk_kernel}
+
+
+def reset_launches() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_launches() -> dict:
-    from supersampler_tpu_torch.ops.field import sweep_kernel
-    from supersampler_tpu_torch.ops.scan_kernel import scan_kernel
-    from supersampler_tpu_torch.ops.walker import walk_kernel
-
-    return {"scan": scan_kernel.launches, "sweep": sweep_kernel.launches,
-            "walk": walk_kernel.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def phase_desert(rng, device, workdir, long_len=12_000_000, single_len=100_000, n_reads=2000,
@@ -426,10 +623,24 @@ def phase_desert(rng, device, workdir, long_len=12_000_000, single_len=100_000, 
             if min(ss.fallbacks.values()) < 1 or counts["walk"] < 1:
                 raise AssertionError("a route did not fall back to the "
                                      f"walker: {ss.fallbacks}, {counts}")
-    if not out["card"] == out["cpu"] == out["card legacy"]:
-        raise AssertionError("desert corpus: card, cpu and legacy bytes "
-                             "differ")
-    log(f"  desert corpus: card == cpu == card legacy bytes "
+    ss = TorchSubsampler(k=K, m=M, s=S, device=device)
+    reset_launches()
+    t0 = time.perf_counter()
+    with fused_env():
+        out["card v2"] = ss.sketch_file(path)
+    walls["card v2"] = time.perf_counter() - t0
+    counts = read_launches()
+    log(f"  desert corpus ({bases} bases), card v2: {walls['card v2']:.3f} "
+        f"s, fallbacks {ss.fallbacks}, launches {counts}")
+    if (min(ss.fallbacks.values()) < 1 or counts["walk"] < 1
+            or counts["scan2"] < 1):
+        raise AssertionError("a route did not fall back to the walker on "
+                             f"v2: {ss.fallbacks}, {counts}")
+    if not (out["card"] == out["cpu"] == out["card legacy"]
+            == out["card v2"]):
+        raise AssertionError("desert corpus: card, cpu, legacy and v2 "
+                             "bytes differ")
+    log(f"  desert corpus: card == cpu == card legacy == card v2 bytes "
         f"({len(out['cpu'])} B)")
 
 
@@ -443,53 +654,87 @@ def check_sketch(raw: bytes) -> None:
         raise AssertionError(f"malformed sketch header {head[:80]!r}")
 
 
-def phase_bench(rng, workdir, n_rec=8, glen=TILE_L, n_reads=10_000):
-    """Phase 4b: the bench corpus through the CLI on the card; the
-    kernels' launch counters are reset just before and read after.
-    Returns (launch counts, genome path, its bases, its sketch
-    sha256)."""
+def bench_cli(workdir, cells, prefix: str, label: str):
+    """The bench cells through the CLI on the card, the launch counters
+    reset just before and read just after each cell. Returns (counts
+    summed over the cells, {path: (wall, sha256)})."""
     from supersampler_tpu_torch.cli import sub_sampler as cli
 
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    walls, per_cell = {}, {}
+    try:
+        for path, bases in cells:
+            reset_launches()
+            t0 = time.perf_counter()
+            with redirect_stdout(io.StringIO()):
+                rc = cli.main(["-i", path, "-k", str(K), "-m", str(M),
+                               "-s", "1000", "-p", prefix])
+            walls[path] = (time.perf_counter() - t0, rc)
+            per_cell[path] = read_launches()
+    finally:
+        os.chdir(cwd)
+    counts = {name: sum(c[name] for c in per_cell.values())
+              for name in read_launches()}
+    gpu = gpu_line()
+    out = {}
+    for path, bases in cells:
+        wall, rc = walls[path]
+        gz_path = os.path.join(workdir, prefix + os.path.basename(path)
+                               .rsplit(".", 1)[0] + ".gz")
+        with open(gz_path, "rb") as f:
+            gz = f.read()
+        if rc != 0:
+            raise AssertionError(f"CLI rc {rc} on {path} ({label})")
+        check_sketch(gzip.decompress(gz))
+        out[path] = (wall, hashlib.sha256(gz).hexdigest())
+        log(f"  {os.path.basename(path)} ({label}): {bases} bases, wall "
+            f"{wall:.3f} s, {bases / 1e6 / wall:.1f} Mbases/s, sketch "
+            f"sha256 {out[path][1]}, launches {per_cell[path]} [{gpu}]")
+    log(f"  launches in this run ({label}): {counts} [{gpu}]")
+    return counts, out
+
+
+def phase_bench(rng, workdir, n_rec=8, glen=TILE_L, n_reads=10_000):
+    """Phase 4b: the bench corpus through the CLI on the card, in the
+    order v1, v2, v2, v1 (every sha256 must agree). Returns (v1 counts,
+    v2 counts, genome path, its bases, its sketch sha256); the counts
+    are those of each path's first run."""
     genome = os.path.join(workdir, "bench_genome.fa")
     reads = os.path.join(workdir, "bench_reads.fa")
     g_bases = write_fasta(
         genome, rng.integers(0, 4, (n_rec, glen), dtype=np.uint8), b"chr")
     r_bases = write_fasta(
         reads, rng.integers(0, 4, (n_reads, 1000), dtype=np.uint8), b"q")
-    cwd = os.getcwd()
-    os.chdir(workdir)
-    reset_launches()
-    walls = {}
-    try:
-        for path, bases in ((genome, g_bases), (reads, r_bases)):
-            t0 = time.perf_counter()
-            with redirect_stdout(io.StringIO()):
-                rc = cli.main(["-i", path, "-k", str(K), "-m", str(M),
-                               "-s", "1000", "-p", "out_"])
-            walls[path] = (time.perf_counter() - t0, bases, rc)
-    finally:
-        os.chdir(cwd)
-    counts = read_launches()
-    gpu = gpu_line()
-    shas = {}
-    for path, (wall, bases, rc) in walls.items():
-        out = os.path.join(workdir, "out_" + os.path.basename(path)
-                           .rsplit(".", 1)[0] + ".gz")
-        with open(out, "rb") as f:
-            gz = f.read()
-        if rc != 0:
-            raise AssertionError(f"CLI rc {rc} on {path}")
-        check_sketch(gzip.decompress(gz))
-        shas[path] = hashlib.sha256(gz).hexdigest()
-        log(f"  {os.path.basename(path)}: {bases} bases, wall {wall:.3f} s,"
-            f" {bases / 1e6 / wall:.1f} Mbases/s, sketch sha256 "
-            f"{shas[path]} [{gpu}]")
-    log(f"  launches in this run: scan {counts['scan']}, "
-        f"sweep {counts['sweep']}, walk {counts['walk']} [{gpu}]")
-    if min(counts["scan"], counts["sweep"]) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{counts}")
-    return counts, genome, g_bases, shas[genome]
+    cells = ((genome, g_bases), (reads, r_bases))
+    counts, walls, shas = {}, {"v1": [], "v2": []}, set()
+    for i, path_name in enumerate(("v1", "v2", "v2", "v1")):
+        if path_name == "v2":
+            with fused_env():
+                c, out = bench_cli(workdir, cells, f"v2_{i}_", "v2")
+        else:
+            c, out = bench_cli(workdir, cells, f"v1_{i}_", "v1")
+        counts.setdefault(path_name, c)
+        walls[path_name].append(out)
+        shas.update((p, h) for p, (_w, h) in out.items())
+    c1, c2 = counts["v1"], counts["v2"]
+    if min(c1["scan"], c1["sweep"]) <= 0 or c1["scan2"]:
+        raise AssertionError(f"v1 run: a kernel of the path never launched"
+                             f" or the v2 scan did: {c1}")
+    if min(c2["scan2"], c2["sweep"]) <= 0 or c2["scan"]:
+        raise AssertionError(f"v2 run: a kernel of the path never launched"
+                             f" or the v1 scan did: {c2}")
+    if len(shas) != len(cells):
+        raise AssertionError(f"bench sketches differ between runs: {shas}")
+    for path, bases in cells:
+        line = "; ".join(
+            f"{p} " + ", ".join(f"{o[path][0]:.3f} s "
+                                f"({bases / 1e6 / o[path][0]:.1f} Mbases/s)"
+                                for o in walls[p])
+            for p in ("v1", "v2"))
+        log(f"  {os.path.basename(path)}: {line} [{gpu_line()}]")
+    log("  bench corpus: every v1 and v2 sketch hashes the same")
+    return c1, c2, genome, g_bases, walls["v1"][0][genome][1]
 
 
 def phase_bench_legacy(device, workdir, genome, bases, want_sha) -> dict:
@@ -534,6 +779,7 @@ def main(argv=None) -> int:
         return 2
     from supersampler_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     rng = np.random.default_rng(args.seed)
     gpu = gpu_line()
     kind = torch.cuda.get_device_name(0)
@@ -545,48 +791,76 @@ def main(argv=None) -> int:
     built = ("up to date" if _build.build_seconds is None
              else f"nvcc {_build.build_seconds:.2f} s")
     log(f"[1] build: {built} (load {time.perf_counter() - t0:.2f} s)")
+    # ptxas: "Compiling entry function '<mangled name>'", then its use
+    names = (("scan2_kernel", "scan2"), ("scan_kernel", "scan"),
+             ("sweep_kernelILb0E", "sweep (lane)"),
+             ("sweep_kernelILb1E", "sweep (col)"), ("walk_kernel", "walk"))
+    for line in (_build.build_log or "").splitlines():
+        if "entry function" in line:
+            log("  ptxas, " + next((n for key, n in names if key in line),
+                                   line))
+        elif "registers" in line or "spill" in line:
+            log(f"    {line.split(':', 1)[-1].strip()}")
 
     log("[2] kernels vs plain on the card")
     kt = phase_kernels(rng, "cuda")
     kt["walk"] = phase_walk(rng, "cuda")
+    kt.update(phase_fused(rng, "cuda"))
     with tempfile.TemporaryDirectory() as tmp:
         log("[3] goldens on the card")
         phase_goldens("cuda", tmp)
+        with fused_env():
+            phase_goldens("cuda", tmp, v2=True)
         phase_goldens("cuda", tmp, engine="legacy")
         log("[4] real size")
         phase_cpu_parity(rng, "cuda", tmp)
         phase_desert(rng, "cuda", tmp)
-        counts, *bench_genome = phase_bench(rng, tmp)
-        counts["walk"] = phase_bench_legacy("cuda", tmp,
-                                            *bench_genome)["walk"]
+        c1, c2, *bench_genome = phase_bench(rng, tmp)
+        c_legacy = phase_bench_legacy("cuda", tmp, *bench_genome)
     for name, key in (("tile", ""), ("1024 x 1 kb batch", "_reads")):
         log(f"  times at the {name}: scan {kt['scan' + key]['ms']:.4f} ms "
             f"(plain {kt['scan' + key]['plain_ms']:.4f} ms), sweep "
             f"{kt['sweep' + key]['ms']:.4f} ms (plain "
             f"{kt['sweep' + key]['plain_ms']:.4f} ms) [{gpu}]")
+    for name, key in (("tile", ""), ("1024 x 1 kb batch", "_reads")):
+        log(f"  v2 at the {name}: scan2 {kt['scan2' + key]['ms']:.4f} ms "
+            f"(plain {kt['scan2' + key]['plain_ms']:.4f} ms), col sweep "
+            f"{kt['sweep_col' + key]['ms']:.4f} ms (plain "
+            f"{kt['sweep_col' + key]['plain_ms']:.4f} ms) [{gpu}]")
     w = kt["walk"]
     log(f"  walk at the tile: s=1000 {w['ms']:.4f} ms (plain "
         f"{w['plain_ms']:.4f} ms), s=1 {w['ms_s1']:.4f} ms (plain "
         f"{w['plain_ms_s1']:.4f} ms); successor-table pass "
         f"{w['succ_ms']:.4f} ms [{gpu}]")
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("jax", "supersampler_tpu"))
+    if bad:
+        raise AssertionError(f"JAX-package modules were imported: {bad}")
+    log("  no module of jax or supersampler_tpu was imported; "
+        f"{time.perf_counter() - t_start:.1f} s in all")
+
+    def entry(name, key, source, replaces, launches):
+        r = kt[key]
+        return {"name": name, "route": "cuda",
+                "source": f"supersampler_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None}
+
+    # launches: v1 kernels from the v1 bench run, v2 ones from the v2
+    # bench run, the walk from the legacy bench run
     table = {"kernels": [
-        {"name": "scan", "route": "cuda",
-         "source": "supersampler_tpu_torch/csrc/scan.cu",
-         "replaces": "supersampler_tpu/ops/scan_kernel.py:40",
-         "launches": counts["scan"],
-         "max_abs_err": kt["scan"]["max_abs_err"],
-         "ms": kt["scan"]["ms"], "plain_ms": kt["scan"]["plain_ms"]},
-        {"name": "sweep", "route": "cuda",
-         "source": "supersampler_tpu_torch/csrc/sweep.cu",
-         "replaces": "supersampler_tpu/ops/field.py:444",
-         "launches": counts["sweep"],
-         "max_abs_err": kt["sweep"]["max_abs_err"],
-         "ms": kt["sweep"]["ms"], "plain_ms": kt["sweep"]["plain_ms"]},
-        {"name": "walk", "route": "cuda",
-         "source": "supersampler_tpu_torch/csrc/walk.cu",
-         "replaces": "supersampler_tpu/ops/walker.py:72",
-         "launches": counts["walk"], "max_abs_err": w["max_abs_err"],
-         "ms": w["ms"], "plain_ms": w["plain_ms"]},
+        entry("scan", "scan", "scan.cu",
+              "supersampler_tpu/ops/scan_kernel.py:40", c1["scan"]),
+        entry("scan2", "scan2", "scan.cu",
+              "supersampler_tpu/ops/fused.py:78", c2["scan2"]),
+        entry("sweep", "sweep", "sweep.cu",
+              "supersampler_tpu/ops/field.py:444", c1["sweep"]),
+        entry("sweep_col", "sweep_col", "sweep.cu",
+              "supersampler_tpu/ops/field.py:444", c2["sweep"]),
+        entry("walk", "walk", "walk.cu",
+              "supersampler_tpu/ops/walker.py:72", c_legacy["walk"]),
     ]}
     print(gpu)
     print(json.dumps(table))

@@ -1,10 +1,11 @@
 """supersampler_tpu_torch — the PyTorch/CUDA port of supersampler_tpu.
 
-Same layout and names as the JAX package; the scan and sweep kernels
-are hand-written CUDA for Hopper (``csrc/``), each with a plain PyTorch
-twin that runs on CPU tensors. The host layer (FASTA I/O, the scalar
-spec, the native C finisher) is imported from supersampler_tpu, whose
-host modules import no JAX.
+Same layout and names as the JAX package; the scan, sweep and walk
+kernels are hand-written CUDA for Hopper (``csrc/``), each with a plain
+PyTorch twin that runs on CPU tensors. The port imports nothing of
+supersampler_tpu: it keeps its own copies of the host layer it uses
+(``core/scalar.py``, ``io/``, ``native.py``, which builds the repo's
+shared ``csrc/spsp_*.c`` into a library of its own).
 """
 
 from __future__ import annotations

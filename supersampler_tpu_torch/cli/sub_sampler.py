@@ -17,9 +17,9 @@ import sys
 
 import numpy as np
 
-from supersampler_tpu.core.scalar import format_g6
-from supersampler_tpu.io.fasta import get_out_name, read_fof
 from supersampler_tpu_torch import default_device
+from supersampler_tpu_torch.core.scalar import format_g6
+from supersampler_tpu_torch.io.fasta import get_out_name, read_fof
 from supersampler_tpu_torch.sketch import (TorchSubsampler, print_stat,
                                            subsample_file)
 

@@ -1,10 +1,14 @@
-// Field scan kernel: 2-bit packed codes -> per-position field tables.
+// Field scan kernels: 2-bit packed codes -> per-position field tables.
 //
-// Replaces the TPU kernel supersampler_tpu/ops/scan_kernel.py
+// spsp_scan replaces the TPU kernel supersampler_tpu/ops/scan_kernel.py
 // (_scan_block_kernel, launched by _scan_tables_mosaic and wrapped by
 // field_core_mosaic) together with the XLA sync chain that followed it
 // (supersampler_tpu/ops/field.py _sync_from_h0) and the position masking
 // of scan_field_2d / scan_field_batched (field.py:189, :264).
+// spsp_scan2 replaces the v2 TPU kernel supersampler_tpu/ops/fused.py
+// _scan2_kernel (launched by _scan2): the same tables in the sweep's
+// column layout, each lane's first sync column and the records' window-0
+// elections. Both share the staging, election and sync code below.
 //
 // What it computes, per position j of a flat batch of records laid
 // back to back (record r owns [r*P_rec, (r+1)*P_rec)):
@@ -34,13 +38,30 @@
 // sync lookback read shared memory instead of recomputing hashes: about
 // 1.5 hashes per position instead of 3W+1. Writes are coalesced (thread
 // j writes position j of every table).
+//
+// spsp_scan2 writes the column layout, entry [r, l] at r * n_lanes + l
+// (the counterpart of the TPU's (tiles, 256, 128) blocks without their
+// half-major lane order), so that a warp of the sweep reads one column
+// of 32 lanes as contiguous words. One thread per column would then
+// write one 4-byte word per 32-byte sector, so a block covers kLanes = 8
+// lanes (2,048 positions): it stages 2,048 + 2W m-mers once (about 1.06
+// hashes per position), keeps each thread's 8 x 7 values in registers
+// and sends one table at a time through a padded (256 x 8) shared tile,
+// from which each warp writes 4 rows of 8 consecutive lanes. A row's 32
+// bytes fill one sector only when n_lanes is a multiple of 8 (the 4 Mbp
+// tile has 16,386 lanes: two sectors per row there). Each lane's first
+// sync comes from a __ballot_sync per warp and a min over the 8 warps in
+// shared memory: no atomics.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kT = 256;  // positions per block
+constexpr int kT = 256;      // threads per block; positions per lane
+constexpr int kLanes = 8;    // lanes per scan2 block
+constexpr int kPad = kLanes + 1;  // scan2 tile row pitch (no bank clash)
+constexpr int kWarps = kT / 32;
 
 constexpr uint64_t kP1 = 11400714785074694791ull;
 constexpr uint64_t kP2 = 14029467366897019727ull;
@@ -103,36 +124,35 @@ __device__ __forceinline__ Election elect(const uint32_t* canon,
   return e;
 }
 
-__global__ void scan_kernel(const uint8_t* __restrict__ packed, int64_t P,
-                            int64_t P_rec, int k, int m,
-                            const int32_t* __restrict__ last_i,
-                            int32_t* __restrict__ h_hi,
-                            int32_t* __restrict__ h_lo,
-                            int32_t* __restrict__ cv,
-                            int32_t* __restrict__ em,
-                            int32_t* __restrict__ ep,
-                            int32_t* __restrict__ eh_hi,
-                            int32_t* __restrict__ eh_lo,
-                            uint8_t* __restrict__ sync,
-                            int32_t* __restrict__ init, int64_t n_rec) {
-  extern __shared__ unsigned char smem[];
-  const int W = k - m + 1;
-  const int n_mm = kT + 2 * W;  // m-mers at x = j0 - W + i
-  const int n_c = n_mm + m - 1;
+// m-mers staged in shared memory: the m-mer starting at position x0 + i
+// has index i (canonical value, strand, XXHash64).
+struct Stage {
+  const uint64_t* hash;
+  const uint32_t* canon;
+  const uint8_t* rev;
+};
+
+__host__ __device__ constexpr size_t stage_bytes(int n_mm, int m) {
+  return static_cast<size_t>(n_mm) * (8 + 4 + 1) + n_mm + m;
+}
+
+// Stages the codes of positions [x0, x0 + n_mm + m - 1) (modulo P: the
+// wrap of the TPU layout's row halo) and then every m-mer's canonical
+// value, strand and hash, each computed once. The whole block calls it.
+__device__ Stage stage_mmers(unsigned char* smem, const uint8_t* packed,
+                             int64_t P, int64_t x0, int n_mm, int m) {
   uint64_t* s_hash = reinterpret_cast<uint64_t*>(smem);
   uint32_t* s_canon = reinterpret_cast<uint32_t*>(s_hash + n_mm);
   uint8_t* s_rev = reinterpret_cast<uint8_t*>(s_canon + n_mm);
   uint8_t* s_code = s_rev + n_mm;
-
-  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * kT;
-  const int64_t x0 = j0 - W;
-  for (int i = threadIdx.x; i < n_c; i += kT) {
+  const int n_c = n_mm + m - 1;
+  for (int i = threadIdx.x; i < n_c; i += blockDim.x) {
     int64_t x = (x0 + i) % P;
     if (x < 0) x += P;
     s_code[i] = (packed[x >> 2] >> (2 * (x & 3))) & 3;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n_mm; i += kT) {
+  for (int i = threadIdx.x; i < n_mm; i += blockDim.x) {
     uint32_t fwd = 0, rc = 0;
     for (int j = 0; j < m; ++j) {
       const uint32_t c = s_code[i + j];
@@ -146,36 +166,162 @@ __global__ void scan_kernel(const uint8_t* __restrict__ packed, int64_t P,
     s_hash[i] = xxh64_8(canon);
   }
   __syncthreads();
+  return {s_hash, s_canon, s_rev};
+}
+
+// The table values of one position j, given o = j - (x0 + W): the m-mer
+// entering at j starts at j + W (index o + 2W); the election is that of
+// window j + 1 (first m-mer at index o + W + 1).
+struct Tables {
+  uint64_t h0;
+  uint32_t cv;
+  Election e;
+};
+
+__device__ __forceinline__ Tables position_tables(const Stage& st, int o,
+                                                  int W, int km) {
+  const int s_ent = o + 2 * W;
+  Tables v;
+  v.h0 = st.hash[s_ent];
+  v.cv = st.canon[s_ent] | (static_cast<uint32_t>(st.rev[s_ent]) << 30);
+  v.e = elect(st.canon, st.rev, st.hash, o + W + 1, km);
+  return v;
+}
+
+// h0 at shared index s strictly below every one of the 2W entering
+// hashes before it (field.py _sync_from_h0, fused.py:148-204).
+__device__ __forceinline__ bool strict_min(const uint64_t* hash, int s,
+                                           int w2) {
+  const uint64_t h0 = hash[s];
+  for (int d = 1; d <= w2; ++d)
+    if (!(h0 < hash[s - d])) return false;
+  return true;
+}
+
+// Record rec's window-0 election (the streaming machine's entry state),
+// written when position o is the record's first.
+__device__ __forceinline__ void write_init(int32_t* init, int64_t rec,
+                                           int64_t n_rec, const Stage& st,
+                                           int o, int W, int km) {
+  const Election e0 = elect(st.canon, st.rev, st.hash, o + W, km);
+  init[rec] = static_cast<int32_t>(e0.mini | (e0.rev << 30));
+  init[n_rec + rec] = e0.pos;
+  init[2 * n_rec + rec] = static_cast<int32_t>(e0.hash >> 32);
+  init[3 * n_rec + rec] = static_cast<int32_t>(e0.hash);
+}
+
+__global__ void scan_kernel(const uint8_t* __restrict__ packed, int64_t P,
+                            int64_t P_rec, int k, int m,
+                            const int32_t* __restrict__ last_i,
+                            int32_t* __restrict__ h_hi,
+                            int32_t* __restrict__ h_lo,
+                            int32_t* __restrict__ cv,
+                            int32_t* __restrict__ em,
+                            int32_t* __restrict__ ep,
+                            int32_t* __restrict__ eh_hi,
+                            int32_t* __restrict__ eh_lo,
+                            uint8_t* __restrict__ sync,
+                            int32_t* __restrict__ init, int64_t n_rec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int W = k - m + 1;
+  const int km = k - m;
+  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * kT;
+  const Stage st = stage_mmers(smem, packed, P, j0 - W, kT + 2 * W, m);
 
   const int t = threadIdx.x;
   const int64_t j = j0 + t;
   if (j >= P) return;
-  const int km = k - m;
-  // shared index of the m-mer starting at position x is x - j0 + W
-  const int s_ent = t + 2 * W;  // m-mer entering at j starts at j + W
-  const uint64_t h0 = s_hash[s_ent];
-  h_hi[j] = static_cast<int32_t>(h0 >> 32);
-  h_lo[j] = static_cast<int32_t>(h0);
-  cv[j] = static_cast<int32_t>(s_canon[s_ent] |
-                               (static_cast<uint32_t>(s_rev[s_ent]) << 30));
-  const Election e = elect(s_canon, s_rev, s_hash, t + W + 1, km);
-  em[j] = static_cast<int32_t>(e.mini | (e.rev << 30));
-  ep[j] = e.pos;
-  eh_hi[j] = static_cast<int32_t>(e.hash >> 32);
-  eh_lo[j] = static_cast<int32_t>(e.hash);
+  const Tables v = position_tables(st, t, W, km);
+  h_hi[j] = static_cast<int32_t>(v.h0 >> 32);
+  h_lo[j] = static_cast<int32_t>(v.h0);
+  cv[j] = static_cast<int32_t>(v.cv);
+  em[j] = static_cast<int32_t>(v.e.mini | (v.e.rev << 30));
+  ep[j] = v.e.pos;
+  eh_hi[j] = static_cast<int32_t>(v.e.hash >> 32);
+  eh_lo[j] = static_cast<int32_t>(v.e.hash);
 
   const int64_t rec = j / P_rec;
   const int64_t jloc = j - rec * P_rec;
-  bool sy = jloc >= 2 * W && jloc <= last_i[rec];
-  for (int d = 1; sy && d <= 2 * W; ++d) sy = h0 < s_hash[s_ent - d];
-  sync[j] = sy;
+  sync[j] = jloc >= 2 * W && jloc <= last_i[rec] &&
+            strict_min(st.hash, t + 2 * W, 2 * W);
+  if (jloc == 0) write_init(init, rec, n_rec, st, t, W, km);
+}
 
-  if (jloc == 0) {
-    const Election e0 = elect(s_canon, s_rev, s_hash, t + W, km);
-    init[rec] = static_cast<int32_t>(e0.mini | (e0.rev << 30));
-    init[n_rec + rec] = e0.pos;
-    init[2 * n_rec + rec] = static_cast<int32_t>(e0.hash >> 32);
-    init[3 * n_rec + rec] = static_cast<int32_t>(e0.hash);
+// The v2 scan: the same tables for kLanes lanes of 256 positions, written
+// in the column layout (entry [r, l] at r * n_lanes + l), plus each
+// lane's first sync column. Thread t owns column t of every lane of the
+// block: its values stay in registers until one table at a time passes
+// through a (256 x kLanes) shared tile, from which a warp writes four
+// rows of kLanes consecutive lanes (32 bytes each).
+__global__ void scan2_kernel(const uint8_t* __restrict__ packed, int64_t P,
+                             int64_t P_rec, int k, int m, int64_t n_lanes,
+                             int32_t* __restrict__ h_hi,
+                             int32_t* __restrict__ h_lo,
+                             int32_t* __restrict__ cv,
+                             int32_t* __restrict__ em,
+                             int32_t* __restrict__ ep,
+                             int32_t* __restrict__ eh_hi,
+                             int32_t* __restrict__ eh_lo,
+                             int32_t* __restrict__ fs,
+                             int32_t* __restrict__ init, int64_t n_rec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int W = k - m + 1;
+  const int km = k - m;
+  const int64_t l0 = static_cast<int64_t>(blockIdx.x) * kLanes;
+  const int64_t j0 = l0 * kT;
+  const int n_mm = kLanes * kT + 2 * W;
+  const Stage st = stage_mmers(smem, packed, P, j0 - W, n_mm, m);
+  int32_t* tile = reinterpret_cast<int32_t*>(
+      smem + ((stage_bytes(n_mm, m) + 15) & ~static_cast<size_t>(15)));
+  int32_t* warp_fs = tile + kT * kPad;  // [kLanes][kWarps]
+
+  const int t = threadIdx.x;
+  const int64_t left = n_lanes - l0;
+  const int nl = left < kLanes ? static_cast<int>(left) : kLanes;
+  uint32_t v[7][kLanes] = {};
+#pragma unroll
+  for (int li = 0; li < kLanes; ++li) {
+    if (li >= nl) continue;  // uniform across the block
+    const int o = li * kT + t;
+    const Tables x = position_tables(st, o, W, km);
+    v[0][li] = static_cast<uint32_t>(x.h0 >> 32);
+    v[1][li] = static_cast<uint32_t>(x.h0);
+    v[2][li] = x.cv;
+    v[3][li] = x.e.mini | (x.e.rev << 30);
+    v[4][li] = static_cast<uint32_t>(x.e.pos);
+    v[5][li] = static_cast<uint32_t>(x.e.hash >> 32);
+    v[6][li] = static_cast<uint32_t>(x.e.hash);
+    const int64_t j = j0 + o;
+    const int64_t rec = j / P_rec;
+    const int64_t jloc = j - rec * P_rec;
+    // v2 sync: masked by the record's first 2W positions only; the
+    // caller drops a first sync past last_i (fused.py:515)
+    const bool sy = jloc >= 2 * W && strict_min(st.hash, o + 2 * W, 2 * W);
+    const unsigned ballot = __ballot_sync(0xffffffffu, sy);
+    if ((t & 31) == 0)
+      warp_fs[li * kWarps + (t >> 5)] =
+          ballot ? (t & ~31) + __ffs(ballot) - 1 : kT;
+    if (jloc == 0) write_init(init, rec, n_rec, st, o, W, km);
+  }
+  __syncthreads();
+  if (t < nl) {
+    int f = kT;
+    for (int w = 0; w < kWarps; ++w) f = min(f, warp_fs[t * kWarps + w]);
+    fs[l0 + t] = f;
+  }
+  int32_t* const outs[7] = {h_hi, h_lo, cv, em, ep, eh_hi, eh_lo};
+#pragma unroll
+  for (int q = 0; q < 7; ++q) {
+#pragma unroll
+    for (int li = 0; li < kLanes; ++li)
+      tile[t * kPad + li] = static_cast<int32_t>(v[q][li]);
+    __syncthreads();
+    for (int f = t; f < kT * kLanes; f += kT) {
+      const int r = f / kLanes;
+      const int li = f % kLanes;
+      if (li < nl) outs[q][r * n_lanes + l0 + li] = tile[r * kPad + li];
+    }
+    __syncthreads();
   }
 }
 
@@ -196,12 +342,33 @@ extern "C" int spsp_scan(const uint8_t* packed, int64_t P, int64_t P_rec,
                          void* stream) {
   if (P <= 0) return 0;
   const int W = k - m + 1;
-  const int n_mm = kT + 2 * W;
-  const size_t smem = static_cast<size_t>(n_mm) * (8 + 4 + 1) + n_mm + m;
+  const size_t smem = stage_bytes(kT + 2 * W, m);
   const int64_t blocks = (P + kT - 1) / kT;
   scan_kernel<<<static_cast<unsigned>(blocks), kT, smem,
                 static_cast<cudaStream_t>(stream)>>>(
       packed, P, P_rec, k, m, last_i, h_hi, h_lo, cv, em, ep, eh_hi, eh_lo,
       sync, init, P / P_rec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The v2 scan. packed: P/4 bytes, P a multiple of 256 and of P_rec; the
+// seven tables are (256, P/256) column layouts; fs holds P/256 first-sync
+// columns (256 = none); init is (4, n_rec) as for spsp_scan.
+extern "C" int spsp_scan2(const uint8_t* packed, int64_t P, int64_t P_rec,
+                          int k, int m, int32_t* h_hi, int32_t* h_lo,
+                          int32_t* cv, int32_t* em, int32_t* ep,
+                          int32_t* eh_hi, int32_t* eh_lo, int32_t* fs,
+                          int32_t* init, void* stream) {
+  if (P <= 0) return 0;
+  const int W = k - m + 1;
+  const int64_t n_lanes = P / kT;
+  const size_t smem =
+      ((stage_bytes(kLanes * kT + 2 * W, m) + 15) & ~static_cast<size_t>(15))
+      + sizeof(int32_t) * (kT * kPad + kLanes * kWarps);
+  const int64_t blocks = (n_lanes + kLanes - 1) / kLanes;
+  scan2_kernel<<<static_cast<unsigned>(blocks), kT, smem,
+                 static_cast<cudaStream_t>(stream)>>>(
+      packed, P, P_rec, k, m, n_lanes, h_hi, h_lo, cv, em, ep, eh_hi, eh_lo,
+      fs, init, P / P_rec);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,13 @@
 //
 // Replaces the TPU kernel supersampler_tpu/ops/field.py _sweep_kernel
 // (launched by _sweep_pallas, dispatched by _run_sweep from
-// resolve_field and resolve_field_batched). Its plain twin is _sweep
-// followed by _lists_from_dense (ops/field.py of this package).
+// resolve_field and resolve_field_batched, and by ops/fused.py's
+// _sweep_blocks in its tab3d mode). Its plain twin is sweep_plain
+// (ops/field.py of this package).
+//
+// Two table layouts, a template parameter: "lane" (flat, column r of
+// lane l at l*256 + r, what spsp_scan writes) and "col" ((256, n), at
+// r*n + l, what spsp_scan2 writes: the counterpart of tab3d).
 //
 // What it computes, per lane l over its columns r in [start, end) while
 // j = j0 + r <= lastiv (reference SubSampler.cpp:367-440):
@@ -23,8 +28,9 @@
 // What bounds it on the H100: serial latency per lane. A 4 Mbp tile has
 // about 16k lanes, so the card is under-occupied (some 120 threads per
 // SM), and a lane's 256 columns form one dependent chain of table reads
-// and compares. Table reads are strided by 256 positions across a warp,
-// which wastes sector bandwidth.
+// and compares. In the lane layout a warp's reads are strided by 256
+// positions, which wastes sector bandwidth; in the column layout they
+// are contiguous.
 //
 // What the design does about it: one thread per lane that loops over
 // its own columns, skips a column's election reads unless an event
@@ -32,8 +38,7 @@
 // prefix sweeps cost almost nothing; the first column read of each
 // 32-byte sector brings the next seven columns into L1. The TPU's
 // VMEM-vector workarounds (a select loop over capl, column-chunk skips)
-// have no counterpart. A column-major table layout that makes the warp's
-// reads coalesced is left for a later change.
+// have no counterpart.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -47,6 +52,7 @@ __host__ __device__ __forceinline__ uint64_t join(uint32_t hi, uint32_t lo) {
   return (static_cast<uint64_t>(hi) << 32) | lo;
 }
 
+template <bool kCol>
 __global__ void sweep_kernel(
     const uint32_t* __restrict__ hh, const uint32_t* __restrict__ hl,
     const uint32_t* __restrict__ cv, const uint32_t* __restrict__ em,
@@ -76,11 +82,13 @@ __global__ void sweep_kernel(
   int cnt = 0;
 
   if (active) {
-    const size_t base = static_cast<size_t>(l) * kB;
+    // column r of lane l sits at base + r * stride
+    const size_t base = kCol ? l : static_cast<size_t>(l) * kB;
+    const size_t stride = kCol ? n : 1;
     for (int r = max(start, 0); r < end; ++r) {
       const int j = j0 + r;
       if (j > lastiv) break;
-      const size_t idx = base + r;
+      const size_t idx = base + r * stride;
       const uint64_t nh = join(hh[idx], hl[idx]);
       const bool is_entry = force_entry && r == start;
       const bool adopt = nh < h || is_entry;
@@ -116,7 +124,8 @@ __global__ void sweep_kernel(
 
 }  // namespace
 
-// Tables: n*256 entries each, lane l owning [l*256, (l+1)*256). se
+// Tables: n*256 entries each; col == 0: lane l owns [l*256, (l+1)*256),
+// col != 0: (256, n) row-major, column r of lane l at r*n + l. se
 // (5, n) = start, end, active, j0, lastiv; st0 (6, n) = val, h_hi, h_lo,
 // p, last_ev, n_ev. Outputs xs (7, n) and lp/lv/ll (capl, n).
 extern "C" int spsp_sweep(const uint32_t* hh, const uint32_t* hl,
@@ -125,12 +134,19 @@ extern "C" int spsp_sweep(const uint32_t* hh, const uint32_t* hl,
                           const uint32_t* ehl, const int32_t* se,
                           const int32_t* st0, uint32_t thr_hi,
                           uint32_t thr_lo, int n, int W, int capl,
-                          int force_entry, int32_t* xs, int32_t* lp,
-                          int32_t* lv, int32_t* ll, void* stream) {
+                          int force_entry, int col, int32_t* xs,
+                          int32_t* lp, int32_t* lv, int32_t* ll,
+                          void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + kThreads - 1) / kThreads;
-  sweep_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      hh, hl, cv, em, ep, ehh, ehl, se, st0, join(thr_hi, thr_lo), n, W,
-      capl, force_entry, xs, lp, lv, ll);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (col)
+    sweep_kernel<true><<<blocks, kThreads, 0, s>>>(
+        hh, hl, cv, em, ep, ehh, ehl, se, st0, join(thr_hi, thr_lo), n, W,
+        capl, force_entry, xs, lp, lv, ll);
+  else
+    sweep_kernel<false><<<blocks, kThreads, 0, s>>>(
+        hh, hl, cv, em, ep, ehh, ehl, se, st0, join(thr_hi, thr_lo), n, W,
+        capl, force_entry, xs, lp, lv, ll);
   return static_cast<int>(cudaGetLastError());
 }

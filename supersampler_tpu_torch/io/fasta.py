@@ -1,0 +1,115 @@
+"""FASTA input with the reference's exact parsing semantics.
+
+The port's copy of what it needs from supersampler_tpu/io/fasta.py. The
+reference reads records with getLineFasta (reference utils.cpp:706-718):
+discard the current line, then concatenate lines until the next '>' or
+EOF; clean_dna (utils.cpp:675-702, done by the native clean+pack here)
+strips every non-ACGT character, joining the flanks.
+"""
+
+from __future__ import annotations
+
+import gzip
+import io
+from typing import List
+
+
+def open_maybe_gzip(path: str) -> io.BufferedReader:
+    """Open a file, auto-detecting gzip by magic bytes (zstr behavior,
+    reference include/zstr.hpp)."""
+    f = open(path, "rb")
+    magic = f.read(2)
+    f.seek(0)
+    if magic == b"\x1f\x8b":
+        return gzip.open(f, "rb")  # type: ignore[return-value]
+    return f
+
+
+def stream_fasta_spans(path: str, window_bytes: int = 4 << 20,
+                       max_records: int = 4096):
+    """Stream (data, spans) blocks with whole-record raw spans, reading
+    the (possibly gzip) input incrementally with O(window + largest
+    record) host memory (the reference streams input through zstr with a
+    fixed window, include/zstr.hpp:397-399 + utils.cpp:357-364).
+
+    Each span is one getLineFasta record body: header line dropped,
+    newlines embedded. A block closes when its payload reaches
+    window_bytes or max_records; the partially-read tail carries into
+    the next block's buffer."""
+    with open_maybe_gzip(path) as f:
+        buf = bytearray()
+        eof = False
+
+        def refill():
+            nonlocal eof
+            chunk = f.read(window_bytes)
+            if chunk:
+                buf.extend(chunk)
+            else:
+                eof = True
+
+        pos = 0
+        spans = []
+        payload = 0
+        while True:
+            nl = buf.find(b"\n", pos)
+            while nl < 0 and not eof:
+                refill()
+                nl = buf.find(b"\n", pos)
+            if nl < 0:
+                # EOF inside the header line (or empty input): an empty
+                # body span only when any bytes remain
+                if pos < len(buf):
+                    spans.append((len(buf), len(buf)))
+                break
+            start = nl + 1
+            sfrom = nl
+            while True:
+                nxt = buf.find(b"\n>", sfrom)
+                if nxt >= 0:
+                    end, pos = nxt, nxt + 1
+                    break
+                if eof:
+                    end = pos = len(buf)
+                    break
+                # a "\n" at the buffer edge may pair with an unread
+                # ">": re-scan from one byte back after refilling
+                sfrom = max(nl, len(buf) - 1)
+                refill()
+            spans.append((start, end))
+            payload += end - start
+            at_eof = eof and pos >= len(buf)
+            if (payload >= window_bytes or len(spans) >= max_records
+                    or at_eof):
+                yield bytes(buf), spans
+                if at_eof:
+                    return
+                tail = bytes(buf[pos:])
+                buf = bytearray(tail)
+                pos = 0
+                spans = []
+                payload = 0
+            if eof and pos >= len(buf):
+                break
+        if spans:
+            yield bytes(buf), spans
+
+
+def read_fof(path: str, min_len: int = 3) -> List[str]:
+    """File-of-files reader: keeps lines longer than ``min_len`` chars
+    (the subsampler keeps size > 3, reference SubSampler.cpp:780)."""
+    out = []
+    with open_maybe_gzip(path) as f:
+        for raw in f.read().split(b"\n"):
+            if len(raw) > min_len:
+                out.append(raw.decode())
+    return out
+
+
+def get_out_name(path: str, prefix: str) -> str:
+    """Output naming: prefix + basename up to the first '.', emitted in
+    the CWD (reference SubSampler.cpp:196-221 ignores the directory
+    part)."""
+    base = path.rsplit("/", 1)[-1]
+    stem = base.split(".", 1)[0]
+    return prefix + stem

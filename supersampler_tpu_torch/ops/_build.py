@@ -24,13 +24,16 @@ _SOURCES = [os.path.join(_PKG, "csrc", f)
 _OUT_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 _LIB = os.path.join(_OUT_DIR, "libspsp_torch_kernels.so")
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+          "-v"]
 
 _lock = threading.Lock()
 _lib = None
 #: wall seconds of this process's nvcc build (None: the library was
 #: already up to date)
 build_seconds = None
+#: ptxas's report of that build (registers, spills, per kernel)
+build_log = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,14 +60,16 @@ def _stale() -> bool:
     return any(os.path.getmtime(s) > built for s in _SOURCES)
 
 
-def _finish(cmd, proc) -> None:
+def _finish(cmd, proc) -> str:
     out, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{out}{err}")
+    return err
 
 
-def _build() -> None:
+def _build() -> str:
+    """Compile and link; returns ptxas's report."""
     os.makedirs(_OUT_DIR, exist_ok=True)
     nvcc = _nvcc()
     tag = os.getpid()
@@ -78,8 +83,7 @@ def _build() -> None:
             text=True)))
     tmp = f"{_LIB}.{tag}.tmp"
     try:
-        for cmd, proc in jobs:
-            _finish(cmd, proc)
+        report = "".join(_finish(cmd, proc) for cmd, proc in jobs)
         cmd = [nvcc, *_ARCH, "-shared", "-o", tmp, *objs]
         _finish(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                       stderr=subprocess.PIPE, text=True))
@@ -92,17 +96,18 @@ def _build() -> None:
             if os.path.exists(obj):
                 os.remove(obj)
     os.replace(tmp, _LIB)
+    return report
 
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
-    global _lib, build_seconds
+    global _lib, build_seconds, build_log
     with _lock:
         if _lib is not None:
             return _lib
         if _stale():
             t0 = time.perf_counter()
-            _build()
+            build_log = _build()
             build_seconds = time.perf_counter() - t0
         lb = ctypes.CDLL(_LIB)
         lb.spsp_cuda_error_string.restype = ctypes.c_char_p
@@ -110,9 +115,11 @@ def lib() -> ctypes.CDLL:
         lb.spsp_scan.restype = _I
         lb.spsp_scan.argtypes = (
             [_P, _I64, _I64, _I, _I, _P] + [_P] * 9 + [_P])
+        lb.spsp_scan2.restype = _I
+        lb.spsp_scan2.argtypes = [_P, _I64, _I64, _I, _I] + [_P] * 9 + [_P]
         lb.spsp_sweep.restype = _I
         lb.spsp_sweep.argtypes = (
-            [_P] * 7 + [_P, _P, _U32, _U32, _I, _I, _I, _I]
+            [_P] * 7 + [_P, _P, _U32, _U32, _I, _I, _I, _I, _I]
             + [_P] * 4 + [_P])
         lb.spsp_walk.restype = _I
         lb.spsp_walk.argtypes = [_P, _I] + [_P] * 7

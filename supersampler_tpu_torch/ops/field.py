@@ -16,11 +16,14 @@ tables (P a multiple of 256), u32 fields as int32 bit patterns, sync
 bool, positions int32. The per-position work runs in two kernels, the
 scan (ops/scan_kernel.py, csrc/scan.cu) and the sweep (``sweep_kernel``
 here, csrc/sweep.cu); the glue between sweeps is plain torch ops on the
-device, as it is XLA in JAX.
+device, as it is XLA in JAX. The opt-in v2 path (ops/fused.py, CUDA
+only, ``SPSP_FUSED=1``) shares the resolve below with the tables in the
+sweep's column layout.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -41,7 +44,9 @@ _M30 = (1 << 30) - 1
 
 
 class FieldTables(NamedTuple):
-    """Flat per-loop-position tables of one sequence (P % 256 == 0)."""
+    """Flat per-loop-position tables of one sequence (P % 256 == 0).
+    The v2 path holds the seven tables in the (256, P/256) column layout
+    and no sync (its lanes' first syncs come from the scan kernel)."""
 
     h_hi: torch.Tensor     # entering m-mer hash at j (u32 bits, int32)
     h_lo: torch.Tensor
@@ -160,25 +165,38 @@ def batched_tables_from_numpy(d: dict, device="cpu") -> BatchedFieldTables:
 # sweep: the streaming machine over each lane's columns
 # ----------------------------------------------------------------------
 
-def _col(a: torch.Tensor, n: int) -> torch.Tensor:
-    """(256, n) column view of a flat lane-major table."""
-    return a.view(n, _B).t()
+_LAYOUTS = ("lane", "col")
+
+
+def _col(a: torch.Tensor, n: int, layout: str) -> torch.Tensor:
+    """(256, n) column view of a table: a flat lane-major table ("lane",
+    column r of lane l at l*256 + r) or one already in the column layout
+    ("col", at r*n + l)."""
+    return a if layout == "col" else a.view(n, _B).t()
+
+
+def _first_sync(sync: torch.Tensor, n: int) -> torch.Tensor:
+    """Each lane's first sync column, 256 where it has none."""
+    sync2 = sync.view(n, _B)
+    return torch.where(sync2.any(1),
+                       sync2.to(torch.uint8).argmax(1).to(_I32), _B)
 
 
 def sweep_plain(tabs, se, st0, thr_hi: int, thr_lo: int, W: int,
-                capl: int, force_entry: bool):
+                capl: int, force_entry: bool, layout: str = "lane"):
     """Plain sweep: the machine over every lane's columns [start, end)
     (reference SubSampler.cpp:367-440) as dense column steps, then the
     per-lane selected-emit lists. The kernel's executable spec.
 
     tabs: the seven tables (h_hi, h_lo, cv, em, ep, eh_hi, eh_lo), n*256
-    int32 each; se (5, n) int32 = start, end, active, j0, lastiv; st0
-    (6, n) int32 = entry FieldState. Returns (xs (7, n) = exit state +
-    cnt, pos, pval, plast (capl, n)) as int32. cnt counts past capl;
-    entry events (forced adoption at start) never emit."""
+    int32 each, flat lane-major (layout "lane") or (256, n) (layout
+    "col"); se (5, n) int32 = start, end, active, j0, lastiv; st0 (6, n)
+    int32 = entry FieldState. Returns (xs (7, n) = exit state + cnt,
+    pos, pval, plast (capl, n)) as int32. cnt counts past capl; entry
+    events (forced adoption at start) never emit."""
     n = se.shape[1]
     dev = se.device
-    hh, hl, cv, em, ep, ehh, ehl = (_col(a, n) for a in tabs)
+    hh, hl, cv, em, ep, ehh, ehl = (_col(a, n, layout) for a in tabs)
     start, end, active, j0, lastiv = se.to(_I64)
     active = active != 0
     thr = U.key_int((thr_hi << 32) | thr_lo)
@@ -229,7 +247,7 @@ def sweep_plain(tabs, se, st0, thr_hi: int, thr_lo: int, W: int,
     return (xs, *lists)
 
 
-def _check_sweep_args(tabs, se, st0, capl):
+def _check_sweep_args(tabs, se, st0, capl, layout):
     n = se.shape[1]
     dev = se.device
     for name, a, shape in (("se", se, (5, n)), ("st0", st0, (6, n))):
@@ -237,26 +255,29 @@ def _check_sweep_args(tabs, se, st0, capl):
                 or not a.is_contiguous()):
             raise ValueError(f"{name} must be contiguous int32 {shape} "
                              f"on {dev}")
+    if layout not in _LAYOUTS:
+        raise ValueError(f"layout must be one of {_LAYOUTS}")
+    tshape = (_B, n) if layout == "col" else (n * _B,)
     for a in tabs:
-        if (a.dtype != _I32 or a.shape != (n * _B,) or a.device != dev
+        if (a.dtype != _I32 or a.shape != tshape or a.device != dev
                 or not a.is_contiguous()):
-            raise ValueError(f"tables must be contiguous int32 ({n * _B},)"
-                             f" on {dev}")
+            raise ValueError(f"tables must be contiguous int32 {tshape} "
+                             f"on {dev}")
     if capl < 1:
         raise ValueError("capl must be positive")
 
 
 def sweep_kernel(tabs, se, st0, thr_hi: int, thr_lo: int, W: int,
-                 capl: int, force_entry: bool):
+                 capl: int, force_entry: bool, layout: str = "lane"):
     """Sweep: the CUDA kernel for CUDA tensors, sweep_plain for CPU
     tensors (same arguments and results). ``sweep_kernel.launches``
     counts kernel launches."""
     if se.device.type == "cpu":
         return sweep_plain(tabs, se, st0, thr_hi, thr_lo, W, capl,
-                           force_entry)
+                           force_entry, layout)
     if se.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {se.device}")
-    _check_sweep_args(tabs, se, st0, capl)
+    _check_sweep_args(tabs, se, st0, capl, layout)
     lib = _build.lib()
     n = se.shape[1]
     dev = se.device
@@ -265,7 +286,8 @@ def sweep_kernel(tabs, se, st0, thr_hi: int, thr_lo: int, W: int,
              for _ in range(3)]
     err = lib.spsp_sweep(
         *(a.data_ptr() for a in tabs), se.data_ptr(), st0.data_ptr(),
-        thr_hi, thr_lo, n, W, capl, int(force_entry), xs.data_ptr(),
+        thr_hi, thr_lo, n, W, capl, int(force_entry),
+        int(layout == "col"), xs.data_ptr(),
         *(a.data_ptr() for a in lists),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "spsp_sweep")
@@ -277,13 +299,13 @@ sweep_kernel.launches = 0
 
 
 def _run_sweep(sweep, tabs, j0, lastiv, W, state0: FieldState, start,
-               end, active, force_entry, thr_hi, thr_lo, capl):
+               end, active, force_entry, thr_hi, thr_lo, capl, layout):
     """Returns (exit_state, cnt, pos_list, pval_list, plast_list)."""
     se = torch.stack([start.to(_I32), end.to(_I32), active.to(_I32),
                       j0.to(_I32), lastiv.to(_I32)])
     st0 = torch.stack([a.to(_I32) for a in state0])
     xs, lp, lv, ll = sweep(tabs, se, st0, thr_hi, thr_lo, W, capl,
-                           force_entry)
+                           force_entry, layout)
     return FieldState(*xs[:6]), xs[6], lp, lv, ll
 
 
@@ -309,19 +331,19 @@ def _sel(h_hi, h_lo, thr_hi: int, thr_lo: int) -> torch.Tensor:
     return U.key(U.join(h_hi, h_lo)) <= U.key_int((thr_hi << 32) | thr_lo)
 
 
-def _resolve_lanes(t, W, capl, lane_base, lastiv, live, is_head, head,
-                   thr_hi, thr_lo, sweep):
+def _resolve_lanes(t, fs, W, capl, lane_base, lastiv, live, is_head, head,
+                   thr_hi, thr_lo, sweep, layout, gate_passes):
     """Sweep 1 plus the prefix passes over every lane.
 
-    is_head marks lanes whose predecessor state is ``head`` (the
-    (val, h_hi, h_lo, p, last_ev) entry, per lane) instead of the
-    previous lane's exit. Returns a dict of per-lane results."""
+    fs: each lane's first sync column (256: none). is_head marks lanes
+    whose predecessor state is ``head`` (the (val, h_hi, h_lo, p,
+    last_ev) entry, per lane) instead of the previous lane's exit. With
+    gate_passes (the v2 path, fused.py:411-415) passes 2.. run only when
+    pass 1 left a lane pending: one host sync instead of three sweeps in
+    the common case. Returns a dict of per-lane results."""
     n = lane_base.numel()
     dev = lane_base.device
-    sync2 = t.sync.view(n, _B)
-    has_sync = sync2.any(1)
-    fs = torch.where(has_sync, sync2.to(torch.uint8).argmax(1).to(_I32),
-                     _B)
+    has_sync = fs < _B
     tabs = (t.h_hi, t.h_lo, t.cv, t.em, t.ep, t.eh_hi, t.eh_lo)
     zero = torch.zeros(n, dtype=_I32, device=dev)
     neg = torch.full((n,), -1, dtype=_I32, device=dev)
@@ -330,7 +352,7 @@ def _resolve_lanes(t, W, capl, lane_base, lastiv, live, is_head, head,
     st1, c_suf, suf_p, suf_v, suf_l = _run_sweep(
         sweep, tabs, lane_base, lastiv, W, zst, fs,
         torch.full((n,), _B, dtype=_I32, device=dev), has_sync, True,
-        thr_hi, thr_lo, capl)
+        thr_hi, thr_lo, capl, layout)
     exit_ = list(st1[:5])
     exit_known = has_sync | ~live
 
@@ -344,13 +366,16 @@ def _resolve_lanes(t, W, capl, lane_base, lastiv, live, is_head, head,
     c_pre = zero
     lzero = torch.zeros((capl, n), dtype=_I32, device=dev)
     pre_p = pre_v = pre_l = lzero
-    for _ in range(_MAX_PASSES):
+    for i in range(_MAX_PASSES):
         can = ~prefix_done & pred(exit_known, True)
+        # a pass that finds no lane pending leaves every later one idle
+        if gate_passes and i == 1 and not bool(can.any()):
+            break
         st0 = FieldState(*(pred(a, h) for a, h in zip(exit_, head)),
                          n_ev=zero)
         st2, c2, p2, v2, l2 = _run_sweep(
             sweep, tabs, lane_base, lastiv, W, st0, zero, fs, can, False,
-            thr_hi, thr_lo, capl)
+            thr_hi, thr_lo, capl, layout)
         pre_p = torch.where(can, p2, pre_p)
         pre_v = torch.where(can, v2, pre_v)
         pre_l = torch.where(can, l2, pre_l)
@@ -439,15 +464,25 @@ def resolve_field(t: FieldTables, k: int, m: int, sel_cap: int,
        exit_val, exit_h_hi, exit_h_lo, exit_p, exit_last_ev,
        pos[cap], last[cap], val[cap], rev[cap]]
     status != 0 => unresolved lanes, a list overflow or a flag."""
+    fs = _first_sync(t.sync, t.h_hi.numel() // _B)
+    return _resolve_field(t, fs, k, m, sel_cap, entry, thr_hi, thr_lo,
+                          sweep, "lane", False)
+
+
+def _resolve_field(t: FieldTables, fs, k: int, m: int, sel_cap: int,
+                   entry: torch.Tensor, thr_hi: int, thr_lo: int, sweep,
+                   layout: str, gate_passes: bool) -> torch.Tensor:
+    """resolve_field from the lanes' first syncs fs (t.sync unread),
+    tables in ``layout``."""
     W = k - m + 1
     n = t.h_hi.numel() // _B
     dev = t.h_hi.device
     capl = _capl(sel_cap, n)
     lanes = torch.arange(n, dtype=_I32, device=dev)
     lane_base = lanes * _B
-    r = _resolve_lanes(t, W, capl, lane_base, t.last_i.expand(n),
+    r = _resolve_lanes(t, fs, W, capl, lane_base, t.last_i.expand(n),
                        lane_base <= t.last_i, lanes == 0, entry[:5],
-                       thr_hi, thr_lo, sweep)
+                       thr_hi, thr_lo, sweep, layout, gate_passes)
     status = (r["open"].sum() + r["over_suf"].sum() + r["over_pre"].sum()
               + t.eflag.to(_I64))
     pos, last, valw, n_sel = _extract(r, sel_cap, capl)
@@ -480,6 +515,17 @@ def resolve_field_batched(t: BatchedFieldTables, k: int, m: int,
     with record-major, record-local event lists. n_sel_total > sel_cap
     means truncated lists; a record's status != 0 means it is
     unresolved."""
+    fs = _first_sync(t.sync, t.h_hi.numel() // _B)
+    return _resolve_field_batched(t, fs, k, m, sel_cap, P_rec, thr_hi,
+                                  thr_lo, sweep, "lane", False)
+
+
+def _resolve_field_batched(t: BatchedFieldTables, fs, k: int, m: int,
+                           sel_cap: int, P_rec: int, thr_hi: int,
+                           thr_lo: int, sweep, layout: str,
+                           gate_passes: bool) -> torch.Tensor:
+    """resolve_field_batched from the lanes' first syncs fs (t.sync
+    unread), tables in ``layout``."""
     W = k - m + 1
     B_n = t.last_i.numel()
     lpr = P_rec // _B
@@ -495,8 +541,9 @@ def resolve_field_batched(t: BatchedFieldTables, k: int, m: int,
     head = (ent_val[lane_rec], t.init_h_hi[lane_rec],
             t.init_h_lo[lane_rec], t.init_p[lane_rec],
             torch.full((n,), -1, dtype=_I32, device=dev))
-    r = _resolve_lanes(t, W, capl, lane_base, lastiv, lane_base <= lastiv,
-                       lanes % lpr == 0, head, thr_hi, thr_lo, sweep)
+    r = _resolve_lanes(t, fs, W, capl, lane_base, lastiv,
+                       lane_base <= lastiv, lanes % lpr == 0, head, thr_hi,
+                       thr_lo, sweep, layout, gate_passes)
 
     def per_record(v):
         return torch.zeros(B_n, dtype=_I64, device=dev).index_add_(
@@ -591,12 +638,25 @@ def walker_exit_to_field_entry(t: FieldTables, scal: torch.Tensor,
         torch.where(no_ev, entry[4], cur_pos) - own, z, z, z]).to(_I32)
 
 
+def _use_fused(device: torch.device) -> bool:
+    """Whether the single and batch routes take the v2 path
+    (ops/fused.py): only on a CUDA device and only with SPSP_FUSED set
+    and not "0" (supersampler_tpu/ops/field.py:1162). v1 is the
+    default."""
+    return (device.type == "cuda"
+            and os.environ.get("SPSP_FUSED", "0") != "0")
+
+
 def scan_resolve_single(slab: torch.Tensor, k: int, m: int, P: int,
                         sel_cap: int, length: int, thr_hi: int,
                         thr_lo: int) -> torch.Tensor:
     """Scan, entry and resolve of a single-tile record. slab: the
     record's packed bytes with a 128-position (32-byte) leading halo,
     (128 + P) / 4 bytes. Returns resolve_field's fetch array."""
+    if _use_fused(slab.device):
+        from supersampler_tpu_torch.ops.fused import fused_single
+
+        return fused_single(slab, k, m, P, sel_cap, length, thr_hi, thr_lo)
     t = scan_field_2d_packed(slab[32:], k, m, P, length)
     entry = field_entry_init(t, thr_hi, thr_lo)
     return resolve_field(t, k, m, sel_cap, entry, thr_hi, thr_lo)
@@ -607,6 +667,11 @@ def scan_resolve_batch(packed: torch.Tensor, k: int, m: int, P_rec: int,
                        thr_lo: int) -> torch.Tensor:
     """Scan and resolve of a (B, P_rec/4) packed record batch. Returns
     resolve_field_batched's fetch array."""
+    if _use_fused(packed.device):
+        from supersampler_tpu_torch.ops.fused import fused_batch
+
+        return fused_batch(packed, k, m, P_rec, sel_cap, lengths, thr_hi,
+                           thr_lo)
     t = scan_field_batched(packed, k, m, P_rec, lengths)
     return resolve_field_batched(t, k, m, sel_cap, P_rec, thr_hi, thr_lo)
 

@@ -11,8 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from supersampler_tpu.core.scalar import (PRIME1, PRIME2, PRIME3, PRIME4,
-                                          PRIME5, SEED)
+from supersampler_tpu_torch.core.scalar import (PRIME1, PRIME2, PRIME3,
+                                                PRIME4, PRIME5, SEED)
 from supersampler_tpu_torch.ops import u64 as U
 
 _H0 = U.signed(SEED + PRIME5 + 8)

@@ -29,7 +29,9 @@ from supersampler_tpu_torch.ops.minimizer import (mmer_build, mmer_elect,
 _I32 = torch.int32
 
 
-def _check_args(packed, k: int, m: int, P_rec: int, last_i):
+def _check_args(packed, k: int, m: int, P_rec: int, last_i=None):
+    """(P, n_rec) of a valid scan call; last_i, where given, must be the
+    records' int32 bounds on packed's device."""
     W = k - m + 1
     if not (1 <= m <= 15 and m <= k <= 63):
         raise ValueError(f"unsupported (k, m) = ({k}, {m})")
@@ -39,8 +41,9 @@ def _check_args(packed, k: int, m: int, P_rec: int, last_i):
     if P_rec <= k + W or P % P_rec:
         raise ValueError(f"P_rec={P_rec} must divide P={P} and exceed k+W")
     n_rec = P // P_rec
-    if (last_i.dtype != _I32 or last_i.shape != (n_rec,)
-            or last_i.device != packed.device):
+    if last_i is not None and (last_i.dtype != _I32
+                               or last_i.shape != (n_rec,)
+                               or last_i.device != packed.device):
         raise ValueError("last_i must be int32 (n_rec,) on packed's device")
     return P, n_rec
 

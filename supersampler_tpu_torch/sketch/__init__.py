@@ -1,5 +1,5 @@
-from supersampler_tpu.io.fasta import get_out_name
-from supersampler_tpu.io.gzip_exact import write_gzip_exact
+from supersampler_tpu_torch.io.fasta import get_out_name
+from supersampler_tpu_torch.io.gzip_exact import write_gzip_exact
 from supersampler_tpu_torch.sketch.pipeline import TorchSubsampler
 from supersampler_tpu_torch.sketch.stats import print_stat
 

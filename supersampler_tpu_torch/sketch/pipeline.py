@@ -21,7 +21,7 @@ record order. ``scan_engine = "legacy"`` sends every record through the
 walker.
 
 Each route fetches one compact array per record, tile or batch; the
-native C finisher (supersampler_tpu.native, csrc/spsp_finish.c) dedups,
+native C finisher (supersampler_tpu_torch.native, csrc/spsp_finish.c) dedups,
 reconstructs and serializes in record order, so the bytes match the
 reference. This is a plain sequential loop: dispatch, fetch, assemble.
 """
@@ -34,12 +34,12 @@ import sys
 import numpy as np
 import torch
 
-from supersampler_tpu.core.scalar import MASK64, format_double
-from supersampler_tpu.io.fasta import stream_fasta_spans
-from supersampler_tpu.native import (NativeFinisher,
-                                     clean_pack_batch_native,
-                                     clean_pack_native)
-from supersampler_tpu.oracle.subsampler import OracleSubsampler
+from supersampler_tpu_torch.core.scalar import (MASK64, compute_threshold,
+                                                format_double)
+from supersampler_tpu_torch.io.fasta import stream_fasta_spans
+from supersampler_tpu_torch.native import (NativeFinisher,
+                                           clean_pack_batch_native,
+                                           clean_pack_native)
 from supersampler_tpu_torch.ops.field import (_pow2_ge, field_carry,
                                               field_entry_init,
                                               field_entry_to_walker_init,
@@ -206,12 +206,42 @@ class FieldChain(_TileChain):
         return dc.compact(), dc.n_sel, nxt
 
 
-class TorchSubsampler(OracleSubsampler):
-    """Sketcher whose scan and resolve run on a torch device.
+class SubsamplerState:
+    """The parameters, FHS threshold and print_stat counters of a
+    sketcher: what the port needs of the JAX package's scalar spec
+    (supersampler_tpu/oracle/subsampler.py OracleSubsampler)."""
 
-    Inherits the parameters, threshold and counters from the scalar
-    spec; intake, reconstruction and serialization go to the native C
-    finisher, which must build."""
+    def __init__(self, k: int = 31, m: int = 11, s: float = 1000.0,
+                 abundance: int = 1):
+        self.k = k
+        self.m = m
+        self.s = s
+        self.abundance = abundance
+        self.max_superkmer_size = k - m + 1
+        self.threshold = compute_threshold(k, m, s)
+        # diagnostics stream; the CLI's fof mode points it at a buffer
+        self.log = None
+        self._reset_stats()
+
+    def _reset_stats(self):
+        self.total_kmer_number = 0
+        self.total_superkmer_number = 0
+        self.selected_kmer_number = 0
+        self.selected_superkmer_number = 0
+        self.count_maximal_skmer = 0
+        self.nb_mmer_selected = 0
+        self.seen_kmers_at_reconstruction = 0
+        self.seen_superkmers_at_reconstruction = 0
+        self.seen_max_superkmers_at_reconstruction = 0
+        self.seen_unique_kmers_at_reconstruction = 0
+        self.total_kmer_number_at_reconstruction = 0
+        self.actual_minimizer_number = 0
+        self.read_kmer = 0
+
+
+class TorchSubsampler(SubsamplerState):
+    """Sketcher whose scan and resolve run on a torch device; intake,
+    reconstruction and serialization go to the native C finisher."""
 
     _sel_cap_guess = 4096
     # short-record batching: records whose padded bucket is at most
@@ -234,9 +264,6 @@ class TorchSubsampler(OracleSubsampler):
                  abundance: int = 1, device="cuda"):
         super().__init__(k=k, m=m, s=s, abundance=abundance)
         self.device = torch.device(device)
-        if not NativeFinisher.available():
-            raise RuntimeError("the native finisher library "
-                               "(csrc/spsp_finish.c) did not build")
         self._nf_obj = NativeFinisher(k, m, abundance)
         self._thr = (self.threshold >> 32, self.threshold & 0xFFFFFFFF)
         self._margin = 2 * (2 * k - m + 2) + 128

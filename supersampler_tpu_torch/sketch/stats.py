@@ -1,6 +1,6 @@
 """print_stat replication (reference SubSampler.cpp:633-665).
 
-A copy of supersampler_tpu/sketch/stats.py, whose package imports JAX.
+A copy of supersampler_tpu/sketch/stats.py.
 
 Every line, spacing and number format matches the reference; doubles are
 printed as C++ ostream default (%.6g), integer ratios use integer
@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import os
 
-from supersampler_tpu.core.scalar import MASK64, format_g6, int_to_string
+from supersampler_tpu_torch.core.scalar import MASK64, format_g6, int_to_string
 
 
 def print_stat(ss, out=None) -> str:

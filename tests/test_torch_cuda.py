@@ -18,7 +18,8 @@ import pytest
 import torch
 
 import supersampler_tpu_torch.ops.field as TF
-from supersampler_tpu.core.scalar import compute_threshold
+from supersampler_tpu_torch.core.scalar import compute_threshold
+from supersampler_tpu_torch.ops import fused as FU
 from supersampler_tpu_torch.ops.minimizer import pack_2bit
 from supersampler_tpu_torch.ops.scan_kernel import scan_kernel, scan_plain
 from supersampler_tpu_torch.sketch import TorchSubsampler
@@ -91,6 +92,54 @@ def test_walk_kernel_equals_plain(cuda, s):
         init5, fb = TW._carry_next(got[4], tab, fb, own)
 
 
+@pytest.mark.parametrize("k,m", [(31, 11), (63, 15), (15, 5)])
+def test_scan2_kernel_equals_plain(cuda, k, m):
+    """Single record (P = 60,160 positions: 235 lanes, a ragged last
+    block) and a batch of 24 records of 2,048 positions."""
+    for P, P_rec in ((60160, 60160), (24 * 2048, 2048)):
+        packed = _packed(k + P, P, P, cuda)
+        got = FU.scan2_kernel(packed, k, m, P_rec)
+        want = FU.scan2_plain(packed, k, m, P_rec)
+        for a, b in zip(got, want, strict=True):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("s", [1.0, 1000.0])
+def test_col_sweep_and_fused_equal_plain_and_v1(cuda, s):
+    """fused_single / fused_batch with the "col" sweep kernel equal the
+    same with sweep_plain and the v1 fetch arrays, homopolymer runs
+    included (passes 2..4)."""
+    k, m, P, L = 31, 11, 1 << 16, 60000
+    thr = compute_threshold(k, m, s)
+    thr = (thr >> 32, thr & 0xFFFFFFFF)
+    c = np.zeros(128 + P, np.uint8)
+    c[128 : 128 + L] = np.random.default_rng(9).integers(0, 4, L)
+    c[20000:23000] = 1
+    slab = pack_2bit(torch.from_numpy(c)).to(cuda)
+    got = FU.fused_single(slab, k, m, P, 1 << 14, L, *thr)
+    assert torch.equal(got, FU.fused_single(slab, k, m, P, 1 << 14, L, *thr,
+                                            sweep=TF.sweep_plain))
+    t = TF.scan_field_2d_packed(slab[32:], k, m, P, L)
+    assert torch.equal(got, TF.resolve_field(
+        t, k, m, 1 << 14, TF.field_entry_init(t, *thr), *thr))
+    B_n, P_rec = 32, 2048
+    rc = np.random.default_rng(10).integers(0, 4, (B_n, P_rec)).astype(
+        np.uint8)
+    lens = np.random.default_rng(11).integers(0, 2001, B_n).astype(np.int32)
+    lens[::5] = 0
+    rc[1, :1500] = 2
+    packed = pack_2bit(torch.from_numpy(rc.reshape(-1))).to(cuda).view(
+        B_n, -1)
+    lengths = torch.from_numpy(np.where(lens >= k, lens, 0)).to(cuda)
+    got = FU.fused_batch(packed, k, m, P_rec, 1 << 14, lengths, *thr)
+    assert torch.equal(got, FU.fused_batch(packed, k, m, P_rec, 1 << 14,
+                                           lengths, *thr,
+                                           sweep=TF.sweep_plain))
+    bt = TF.scan_field_batched(packed, k, m, P_rec, lengths)
+    assert torch.equal(got, TF.resolve_field_batched(bt, k, m, 1 << 14,
+                                                     P_rec, *thr))
+
+
 def _golden_big(tmp_path, device, engine):
     here = os.path.dirname(os.path.abspath(__file__))
     spec = importlib.util.spec_from_file_location(
@@ -112,3 +161,10 @@ def test_golden_sketch_on_cuda(cuda, tmp_path):
 
 def test_golden_sketch_on_cuda_legacy_engine(cuda, tmp_path):
     _golden_big(tmp_path, cuda, "legacy")
+
+
+def test_golden_sketch_on_cuda_v2(cuda, tmp_path, monkeypatch):
+    monkeypatch.setenv("SPSP_FUSED", "1")
+    FU.scan2_kernel.launches = 0
+    _golden_big(tmp_path, cuda, "field")
+    assert FU.scan2_kernel.launches > 0

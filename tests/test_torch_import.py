@@ -1,22 +1,55 @@
-"""The PyTorch port imports no JAX: every module of
-supersampler_tpu_torch loads in a fresh interpreter with ``jax`` absent
-from sys.modules afterwards."""
+"""The PyTorch port imports no JAX and nothing of supersampler_tpu.
 
+A fresh interpreter imports every module of supersampler_tpu_torch,
+sketches a small FASTA on the CPU and runs the CLI; ``jax`` and
+``supersampler_tpu`` / ``supersampler_tpu.*`` are then still absent
+from sys.modules. The port's copies of the host layer are held to their
+JAX-package originals."""
+
+import gzip
 import os
 import subprocess
 import sys
 
+import numpy as np
+import pytest
+
+import supersampler_tpu.core.scalar as JS
+import supersampler_tpu.io.fasta as JFA
+import supersampler_tpu.io.gzip_exact as JGZ
+import supersampler_tpu_torch.core.scalar as TS
+import supersampler_tpu_torch.io.fasta as TFA
+import supersampler_tpu_torch.io.gzip_exact as TGZ
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
-import importlib, pkgutil, sys
+import contextlib, importlib, io, os, pkgutil, random, sys, tempfile
 import supersampler_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 12, names
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print("MODULES", len(names), "JAX", bad)
+assert len(names) >= 17, names
+from supersampler_tpu_torch.cli import sub_sampler
+from supersampler_tpu_torch.sketch import TorchSubsampler
+rng = random.Random(5)
+with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "g.fa.gz")
+    with open(path, "wb") as f:
+        f.write(__import__("gzip").compress(b"".join(
+            b">r%d\\n" % i + "".join(rng.choice("ACGTN") for _ in range(n))
+            .encode() + b"\\n" for i, n in enumerate((3000, 500, 40)))))
+    raw = TorchSubsampler(k=31, m=11, s=10.0, device="cpu").sketch_file(path)
+    assert raw and raw.split(b" ", 1)[0] == b"51", raw[:40]
+    os.chdir(tmp)
+    os.environ["TORCH_DEVICE"] = "cpu"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = sub_sampler.main(["-i", path, "-s", "10", "-p", "cli_"])
+    assert rc == 0 and os.path.getsize("cli_g.gz") > 0, out.getvalue()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "supersampler_tpu"))
+print("MODULES", len(names), "FORBIDDEN", bad)
 sys.exit(1 if bad else 0)
 """
 
@@ -27,4 +60,62 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", _PROBE], cwd=_REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert "JAX []" in r.stdout
+    assert "FORBIDDEN []" in r.stdout
+
+
+@pytest.mark.parametrize("k,m,s", [
+    (31, 11, 1000.0), (31, 11, 10.0), (21, 7, 500.0), (63, 15, 2.0),
+    (15, 5, 1.5), (31, 11, 1.0), (31, 11, 0.5)])
+def test_compute_threshold_matches_jax(k, m, s):
+    assert TS.compute_threshold(k, m, s) == JS.compute_threshold(k, m, s)
+
+
+@pytest.mark.parametrize("x", [0.0, 1.0, 10.0, 1000.0, 1 / 3, 123456789.5,
+                               2.5e-7, 31.999999])
+def test_number_formats_match_jax(x):
+    assert TS.format_g6(x) == JS.format_g6(x)
+    assert TS.format_double(x) == JS.format_double(x)
+
+
+@pytest.mark.parametrize("n", [0, 7, 999, 1000, 1001, 1010, 1100, 999999,
+                               1000000, 12345678901])
+def test_int_to_string_matches_jax(n):
+    assert TS.int_to_string(n) == JS.int_to_string(n)
+
+
+def test_host_constants_match_jax():
+    for name in ("MASK64", "PRIME1", "PRIME2", "PRIME3", "PRIME4",
+                 "PRIME5", "SEED"):
+        assert getattr(TS, name) == getattr(JS, name), name
+
+
+@pytest.mark.parametrize("window,max_records", [(1 << 20, 4096), (97, 3)])
+def test_stream_fasta_spans_matches_jax(tmp_path, window, max_records):
+    rng = np.random.default_rng(2)
+    recs = []
+    for i in range(40):
+        body = bytes(rng.choice(list(b"ACGTNacgt"), int(rng.integers(
+            0, 400))))
+        lines = [body[j : j + 60] for j in range(0, len(body), 60)]
+        recs.append(b">rec%d x\n" % i + b"\n".join(lines) + b"\n")
+    path = tmp_path / "r.fa.gz"
+    path.write_bytes(gzip.compress(b"".join(recs) + b">tail"))
+    got = list(TFA.stream_fasta_spans(str(path), window, max_records))
+    want = list(JFA.stream_fasta_spans(str(path), window, max_records))
+    assert got == want and len(got) >= 1
+
+
+def test_fof_and_out_name_match_jax(tmp_path):
+    fof = tmp_path / "fof.txt"
+    fof.write_text("a.fa\nbb\n/x/y/genome.fa.gz\n\nabcd\n")
+    assert TFA.read_fof(str(fof)) == JFA.read_fof(str(fof))
+    for p in ("/x/y/genome.fa.gz", "reads", "a.b.c"):
+        assert TFA.get_out_name(p, "pre_") == JFA.get_out_name(p, "pre_")
+
+
+@pytest.mark.parametrize("level", [1, 6, 9])
+def test_write_gzip_exact_matches_jax(tmp_path, level):
+    data = np.random.default_rng(level).bytes(5000) + b"ACGT" * 500
+    TGZ.write_gzip_exact(str(tmp_path / "t.gz"), data, level)
+    JGZ.write_gzip_exact(str(tmp_path / "j.gz"), data, level)
+    assert (tmp_path / "t.gz").read_bytes() == (tmp_path / "j.gz").read_bytes()
