@@ -11,13 +11,18 @@ Phases, each printing its result; any failure exits non-zero:
      (integer outputs, tolerance 0): the scan and the v2 scan on a full
      4 Mbp tile at (k, m) = (31, 11), (63, 15), (15, 5) and on a
      1,024 x 1 kb read batch; every sweep ("lane" layout) of that tile's
-     and that batch's v1 resolves and every "col" sweep of their v2
-     resolves (fused_single / fused_batch), whose fetch arrays must
-     equal v1's there, on the tile with a 3 kb homopolymer (prefix
-     passes 2..4) and at s = 1; the walk over a full tile's successor
-     words at s = 1000 and s = 1, and over the next tile entered from
-     its carry. Kernel and plain times come from CUDA events, as does
-     the time of the successor-table pass at the tile;
+     and that batch's v1 resolves, each again with its tables in the
+     "col" layout (col kernel == lane kernel); the sweep on the
+     adversarial inputs of tests/sweep_cases.py (and one at the tile's
+     width) in both layouts; every "col" sweep of the v2 resolves
+     (fused_single / fused_batch), whose fetch arrays must equal v1's
+     there, on the tile with a 3 kb homopolymer (prefix passes 2..4) and
+     at s = 1; the walk over a full tile's successor words at s = 1000
+     and s = 1, and over the next tile entered from its carry. Kernel
+     and plain times come from CUDA events, with the queue filled first
+     so that launches run back to back (the sweep 1 also at the host's
+     pace); every sweep of the tile and batch resolves is timed in both
+     layouts, as is the successor-table pass at the tile;
   3. goldens: the 10 tests/golden sketches, and the CLI's compressed
      output and stdout, from sketches made on the card, on v1 and again
      on v2 (SPSP_FUSED=1); the 10 through the exact engine
@@ -39,7 +44,9 @@ After the phases no supersampler_tpu module may have been imported.
 The line before the last is the kernel table, each kernel with its
 time, its plain version's time and its bound (the larger of the bytes
 it must move over the HBM rate and its 32-bit ALU operations over the
-card's scalar peak); the last line is {"ok": true, "device": {...}}.
+card's scalar peak), the sweeps (sweep 1 of the tile resolve) also with
+the sum over the resolve's five sweeps and their bounds and the batch's
+times; the last line is {"ok": true, "device": {...}}.
 Needs one CUDA card; no network.
 """
 
@@ -91,12 +98,18 @@ def gpu_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean milliseconds per call of fn on the current stream."""
+def cuda_ms(fn, iters: int, paced: bool = False) -> float:
+    """Mean milliseconds per call of fn on the current stream. The queue
+    is first filled with a sleep kernel, so that the launches run back
+    to back on the card and the host's launch cost stays out of the
+    time; paced=True leaves it out, so a kernel shorter than its launch
+    cost is timed at the host's pace."""
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    if not paced:
+        torch.cuda._sleep(20_000_000)
     t0.record()
     for _ in range(iters):
         fn()
@@ -121,14 +134,17 @@ def max_abs_err(got, want) -> int:
 
 class SweepCheck:
     """A sweep for resolve_field that runs the kernel and the plain
-    version on the same inputs, requires bit-equality and returns the
-    kernel's result."""
+    version on the same inputs, requires bit-equality, records every
+    call (inputs and the kernel's exit state) and returns the kernel's
+    result."""
 
     def __init__(self):
-        self.n = 0
-        self.first = None
-        self.first_out = None
+        self.calls = []
         self.max_abs_err = 0
+
+    @property
+    def n(self) -> int:
+        return len(self.calls)
 
     def __call__(self, tabs, se, st0, *rest):
         from supersampler_tpu_torch.ops.field import sweep_kernel, sweep_plain
@@ -139,11 +155,92 @@ class SweepCheck:
             raise AssertionError(f"sweep {self.n}: kernel != plain "
                                  f"(max_abs_err {err})")
         self.max_abs_err = max(self.max_abs_err, err)
-        if self.first is None:
-            self.first = (tabs, se.clone(), st0.clone(), rest)
-            self.first_out = got
-        self.n += 1
+        self.calls.append((tabs, se.clone(), st0.clone(), rest, got[0]))
         return got
+
+
+def load_tests_module(name: str):
+    """tests/<name>.py by file path: an installed package named "tests"
+    would shadow ours."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tests", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def to_col(tabs, n: int):
+    """Lane-layout tables in the (256, n) column layout."""
+    return [a.view(n, 256).t().contiguous() for a in tabs]
+
+
+def time_sweeps(calls, timing: bool) -> dict:
+    """Every recorded sweep of a resolve again, in the lane layout and
+    with its tables transposed to the col layout: the col kernel must
+    equal the lane kernel; returns {layout: {ms, all_ms, plain_ms,
+    paced_ms}} (sweep 1's times and the sum over the calls) plus each
+    sweep's bound in "bounds"."""
+    from supersampler_tpu_torch.ops.field import sweep_kernel, sweep_plain
+
+    out = {"lane": {"each_ms": []}, "col": {"each_ms": []}, "bounds": []}
+    for i, (tabs, se, st0, rest, xs) in enumerate(calls):
+        n = se.shape[1]
+        cols = to_col(tabs, n)
+        rest_c = (*rest[:-1], "col")
+        err = max_abs_err(sweep_kernel(cols, se, st0, *rest_c),
+                          sweep_kernel(tabs, se, st0, *rest))
+        if err:
+            raise AssertionError(f"sweep {i}: col kernel != lane kernel "
+                                 f"(max_abs_err {err})")
+        out["bounds"].append(sweep_bound(se, st0, xs, rest[3]))
+        if not timing:
+            continue
+        for lay, tb, rs in (("lane", tabs, rest), ("col", cols, rest_c)):
+            r = out[lay]
+            r["each_ms"].append(cuda_ms(
+                lambda: sweep_kernel(tb, se, st0, *rs), 20))
+            if i == 0:
+                r["paced_ms"] = cuda_ms(
+                    lambda: sweep_kernel(tb, se, st0, *rs), 20, paced=True)
+                r["plain_ms"] = cuda_ms(
+                    lambda: sweep_plain(tb, se, st0, *rs), 3)
+    if timing:
+        for r in (out["lane"], out["col"]):
+            r["ms"], r["all_ms"] = r["each_ms"][0], sum(r["each_ms"])
+    out["all_bound_ms"] = sum(b["bound_ms"] for b in out["bounds"])
+    return out
+
+
+def phase_sweep_edges(device, tile_lanes=16386) -> int:
+    """Phase 2, sweep: the kernel against sweep_plain on the adversarial
+    inputs of tests/sweep_cases.py and on one such case at the tile's
+    width, in both layouts. Returns the largest error."""
+    from supersampler_tpu_torch.ops.field import sweep_kernel, sweep_plain
+
+    sc = load_tests_module("sweep_cases")
+    cases = [(cid, sc.case(cid)) for cid, *_ in sc.CASES]
+    cases.append((f"n{tile_lanes}_ties4_entry",
+                  sc.sweep_case(1, tile_lanes, 16, True, 4)))
+    worst = 0
+    for cid, d in cases:
+        n = d["se"].shape[1]
+        tabs = [torch.from_numpy(a).to(device) for a in d["tabs"]]
+        se = torch.from_numpy(d["se"]).to(device)
+        st0 = torch.from_numpy(d["st0"]).to(device)
+        rest = (*d["thr"], d["W"], d["capl"], d["force_entry"])
+        for layout, tb in (("lane", tabs), ("col", to_col(tabs, n))):
+            err = max_abs_err(sweep_kernel(tb, se, st0, *rest, layout),
+                              sweep_plain(tb, se, st0, *rest, layout))
+            if err:
+                raise AssertionError(f"sweep kernel != plain on edge case "
+                                     f"{cid} ({layout}): max_abs_err {err}")
+            worst = max(worst, err)
+    log(f"  sweep kernel == plain on {len(cases)} edge cases "
+        f"({', '.join(c for c, _ in cases)}), lane and col layouts: "
+        f"bit-equal (max_abs_err {worst})")
+    return worst
 
 
 def check_scan(packed, k, m, P_rec, last_i) -> int:
@@ -214,7 +311,7 @@ def phase_kernels(rng, device, tile_p=TILE_P, tile_l=TILE_L,
 
     thr = TorchSubsampler(k=K, m=M, s=S, device=device).threshold
     thr_w = (thr >> 32, thr & 0xFFFFFFFF)
-    res = {"scan": {}, "sweep": {}}
+    res = {"scan": {}}
 
     codes = torch.zeros(tile_p, dtype=torch.uint8)
     codes[:tile_l] = torch.from_numpy(
@@ -247,12 +344,6 @@ def phase_kernels(rng, device, tile_p=TILE_P, tile_l=TILE_L,
     log(f"  sweep kernel == plain on all {chk.n} sweeps of the tile's "
         f"resolve (status {int(got[0])}, n_sel {int(got[1])}): bit-equal "
         f"(max_abs_err {chk.max_abs_err})")
-    tabs, se, st0, rest = chk.first
-    res["sweep"].update(sweep_bound(se, st0, chk.first_out[0], rest[3]))
-    if timing:
-        res["sweep"]["ms"], res["sweep"]["plain_ms"] = time_pair(
-            lambda: F.sweep_kernel(tabs, se, st0, *rest),
-            lambda: F.sweep_plain(tabs, se, st0, *rest))
 
     # the reads batch: 1 kb records padded to 2,048 positions
     P_rec = 2048
@@ -273,20 +364,31 @@ def phase_kernels(rng, device, tile_p=TILE_P, tile_l=TILE_L,
                                    sweep=F.sweep_plain)
     if bchk.n != 5 or not torch.equal(got, want):
         raise AssertionError("batch resolve differs between sweeps")
-    res["sweep"]["max_abs_err"] = max(chk.max_abs_err, bchk.max_abs_err)
+    sweep_err = max(chk.max_abs_err, bchk.max_abs_err)
     log(f"  scan and all {bchk.n} sweeps on the {n_reads} x 1 kb batch: "
         f"kernel == plain, bit-equal (status {int(got[0])}, "
         f"n_sel {int(got[1])}; max_abs_err scan {err}, sweep "
         f"{bchk.max_abs_err})")
+    tile_sw = res["sweeps_tile"] = time_sweeps(chk.calls, timing)
+    reads_sw = res["sweeps_reads"] = time_sweeps(bchk.calls, timing)
+    log(f"  the {chk.n} tile sweeps and the {bchk.n} batch sweeps again "
+        "with their tables in the col layout: col kernel == lane kernel")
     if timing:
         li = lengths - (K + 1)
-        tabs, se, st0, rest = bchk.first
         res["scan_reads"] = dict(zip(("ms", "plain_ms"), time_pair(
             lambda: scan_kernel(bpacked, K, M, P_rec, li),
             lambda: scan_plain(bpacked, K, M, P_rec, li))))
-        res["sweep_reads"] = dict(zip(("ms", "plain_ms"), time_pair(
-            lambda: F.sweep_kernel(tabs, se, st0, *rest),
-            lambda: F.sweep_plain(tabs, se, st0, *rest))))
+    # the kernel entries: sweep 1 of the tile resolve, in each layout,
+    # with the sums over its five sweeps
+    for name, lay in (("sweep", "lane"), ("sweep_col", "col")):
+        res[name] = {"max_abs_err": sweep_err, **tile_sw["bounds"][0],
+                     "all_sweeps_bound_ms": tile_sw["all_bound_ms"]}
+        if timing:
+            res[name].update(
+                ms=tile_sw[lay]["ms"], plain_ms=tile_sw[lay]["plain_ms"],
+                all_sweeps_ms=tile_sw[lay]["all_ms"],
+                batch_ms=reads_sw[lay]["ms"],
+                batch_all_sweeps_ms=reads_sw[lay]["all_ms"])
     return res
 
 
@@ -350,14 +452,14 @@ def phase_fused(rng, device, tile_p=TILE_P, tile_l=TILE_L, n_reads=1024,
     (k, m)) and on the read batch; every "col" sweep of fused_single /
     fused_batch against sweep_plain; the v2 fetch arrays against v1's at
     the tile, on the tile with a 3 kb homopolymer (passes 2..4 run), at
-    s = 1 and on the batch. Returns {"scan2": ..., "sweep_col": ...}
-    with max_abs_err, bounds and times."""
+    s = 1 and on the batch. Returns {"scan2": {max_abs_err, bound, times},
+    "sweep_col_v2": {max_abs_err}} (phase_kernels times the col sweep)."""
     from supersampler_tpu_torch.ops import field as F
     from supersampler_tpu_torch.ops import fused as FU
     from supersampler_tpu_torch.ops.minimizer import pack_2bit
     from supersampler_tpu_torch.sketch import TorchSubsampler
 
-    res = {"scan2": {"max_abs_err": 0}, "sweep_col": {"max_abs_err": 0}}
+    res = {"scan2": {"max_abs_err": 0}, "sweep_col_v2": {"max_abs_err": 0}}
 
     def check_scan2(packed, k, m, P_rec, what):
         err = max_abs_err(FU.scan2_kernel(packed, k, m, P_rec),
@@ -375,8 +477,8 @@ def phase_fused(rng, device, tile_p=TILE_P, tile_l=TILE_L, n_reads=1024,
         want = v1()
         if not torch.equal(got, want):
             raise AssertionError(f"{name}: v2 fetch array != v1's")
-        res["sweep_col"]["max_abs_err"] = max(
-            res["sweep_col"]["max_abs_err"], chk.max_abs_err)
+        res["sweep_col_v2"]["max_abs_err"] = max(
+            res["sweep_col_v2"]["max_abs_err"], chk.max_abs_err)
         log(f"  {name}: v2 fetch array == v1's (status {int(got[0])}, "
             f"n_sel {int(got[1])}); all {chk.n} col sweeps kernel == "
             f"plain (max_abs_err {chk.max_abs_err})")
@@ -418,14 +520,6 @@ def phase_fused(rng, device, tile_p=TILE_P, tile_l=TILE_L, n_reads=1024,
         if mut and chk.n != 5:
             raise AssertionError(f"{what}: passes 2..4 did not run "
                                  f"({chk.n} sweeps)")
-        if what == "tile":
-            tabs, se, st0, rest = chk.first
-            res["sweep_col"].update(sweep_bound(se, st0, chk.first_out[0],
-                                                rest[3]))
-            if timing:
-                res["sweep_col"]["ms"], res["sweep_col"]["plain_ms"] = \
-                    time_pair(lambda: F.sweep_kernel(tabs, se, st0, *rest),
-                              lambda: F.sweep_plain(tabs, se, st0, *rest))
 
     thr = TorchSubsampler(k=K, m=M, s=S, device=device).threshold
     thr_w = (thr >> 32, thr & 0xFFFFFFFF)
@@ -439,18 +533,14 @@ def phase_fused(rng, device, tile_p=TILE_P, tile_l=TILE_L, n_reads=1024,
     for k, m in ((31, 11), (63, 15), (15, 5)):
         check_scan2(bpacked, k, m, P_rec, f"the {n_reads} x 1 kb batch")
     bpk = bpacked.view(n_reads, -1)
-    chk = resolve_both(f"{n_reads} x 1 kb batch", lambda sw: FU.fused_batch(
+    resolve_both(f"{n_reads} x 1 kb batch", lambda sw: FU.fused_batch(
         bpk, K, M, P_rec, 1 << 14, lengths, *thr_w, sweep=sw),
         lambda: F.resolve_field_batched(F.scan_field_batched(
             bpk, K, M, P_rec, lengths), K, M, 1 << 14, P_rec, *thr_w))
     if timing:
-        tabs, se, st0, rest = chk.first
         res["scan2_reads"] = dict(zip(("ms", "plain_ms"), time_pair(
             lambda: FU.scan2_kernel(bpacked, K, M, P_rec),
             lambda: FU.scan2_plain(bpacked, K, M, P_rec))))
-        res["sweep_col_reads"] = dict(zip(("ms", "plain_ms"), time_pair(
-            lambda: F.sweep_kernel(tabs, se, st0, *rest),
-            lambda: F.sweep_plain(tabs, se, st0, *rest))))
     return res
 
 
@@ -468,16 +558,10 @@ def phase_goldens(device, workdir, engine="field", v2=False) -> None:
     """Phase 3: the golden sketches, and for the field engine the CLI,
     sketched on device; v2: under SPSP_FUSED=1, which must launch the
     v2 scan."""
-    import importlib.util
-
     from supersampler_tpu_torch.cli import sub_sampler as cli
     from supersampler_tpu_torch.sketch import TorchSubsampler
 
-    # by path: an installed package named "tests" would shadow ours
-    spec = importlib.util.spec_from_file_location(
-        "make_data", os.path.join(ROOT, "tests", "make_data.py"))
-    make_data = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(make_data)
+    make_data = load_tests_module("make_data")
     gold = os.path.join(ROOT, "tests", "golden")
     data = make_data.make_all(os.path.join(workdir, "data"))
     with open(os.path.join(gold, "meta.json")) as f:
@@ -804,8 +888,13 @@ def main(argv=None) -> int:
 
     log("[2] kernels vs plain on the card")
     kt = phase_kernels(rng, "cuda")
+    edge_err = phase_sweep_edges("cuda")
     kt["walk"] = phase_walk(rng, "cuda")
     kt.update(phase_fused(rng, "cuda"))
+    kt["sweep"]["max_abs_err"] = max(kt["sweep"]["max_abs_err"], edge_err)
+    kt["sweep_col"]["max_abs_err"] = max(
+        kt["sweep_col"]["max_abs_err"], edge_err,
+        kt["sweep_col_v2"]["max_abs_err"])
     with tempfile.TemporaryDirectory() as tmp:
         log("[3] goldens on the card")
         phase_goldens("cuda", tmp)
@@ -819,14 +908,20 @@ def main(argv=None) -> int:
         c_legacy = phase_bench_legacy("cuda", tmp, *bench_genome)
     for name, key in (("tile", ""), ("1024 x 1 kb batch", "_reads")):
         log(f"  times at the {name}: scan {kt['scan' + key]['ms']:.4f} ms "
-            f"(plain {kt['scan' + key]['plain_ms']:.4f} ms), sweep "
-            f"{kt['sweep' + key]['ms']:.4f} ms (plain "
-            f"{kt['sweep' + key]['plain_ms']:.4f} ms) [{gpu}]")
-    for name, key in (("tile", ""), ("1024 x 1 kb batch", "_reads")):
-        log(f"  v2 at the {name}: scan2 {kt['scan2' + key]['ms']:.4f} ms "
-            f"(plain {kt['scan2' + key]['plain_ms']:.4f} ms), col sweep "
-            f"{kt['sweep_col' + key]['ms']:.4f} ms (plain "
-            f"{kt['sweep_col' + key]['plain_ms']:.4f} ms) [{gpu}]")
+            f"(plain {kt['scan' + key]['plain_ms']:.4f} ms), scan2 "
+            f"{kt['scan2' + key]['ms']:.4f} ms (plain "
+            f"{kt['scan2' + key]['plain_ms']:.4f} ms) [{gpu}]")
+    for name, key in (("tile", "tile"), ("1024 x 1 kb batch", "reads")):
+        sw = kt["sweeps_" + key]
+        bounds = ", ".join(f"{b['bound_ms']:.4f}" for b in sw["bounds"])
+        for lay in ("lane", "col"):
+            r = sw[lay]
+            each = ", ".join(f"{t:.4f}" for t in r["each_ms"])
+            log(f"  {lay} sweeps of the {name} resolve: sweep 1 "
+                f"{r['ms']:.4f} ms (host-paced {r['paced_ms']:.4f} ms, "
+                f"plain {r['plain_ms']:.4f} ms); all {len(r['each_ms'])} "
+                f"{r['all_ms']:.4f} ms ({each}); bounds {bounds} ms, sum "
+                f"{sw['all_bound_ms']:.4f} ms [{gpu}]")
     w = kt["walk"]
     log(f"  walk at the tile: s=1000 {w['ms']:.4f} ms (plain "
         f"{w['plain_ms']:.4f} ms), s=1 {w['ms_s1']:.4f} ms (plain "
@@ -841,12 +936,15 @@ def main(argv=None) -> int:
 
     def entry(name, key, source, replaces, launches):
         r = kt[key]
+        extra = {k: r[k] for k in ("all_sweeps_ms", "all_sweeps_bound_ms",
+                                   "batch_ms", "batch_all_sweeps_ms")
+                 if k in r}
         return {"name": name, "route": "cuda",
                 "source": f"supersampler_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": None}
+                "bound_by": r["bound_by"], "library_ms": None, **extra}
 
     # launches: v1 kernels from the v1 bench run, v2 ones from the v2
     # bench run, the walk from the legacy bench run

@@ -166,6 +166,7 @@ def batched_tables_from_numpy(d: dict, device="cpu") -> BatchedFieldTables:
 # ----------------------------------------------------------------------
 
 _LAYOUTS = ("lane", "col")
+_MAX_CAPL = 256          # the kernel stages the lists in shared memory
 
 
 def _col(a: torch.Tensor, n: int, layout: str) -> torch.Tensor:
@@ -263,8 +264,8 @@ def _check_sweep_args(tabs, se, st0, capl, layout):
                 or not a.is_contiguous()):
             raise ValueError(f"tables must be contiguous int32 {tshape} "
                              f"on {dev}")
-    if capl < 1:
-        raise ValueError("capl must be positive")
+    if not 1 <= capl <= _MAX_CAPL:
+        raise ValueError(f"capl must be in [1, {_MAX_CAPL}]")
 
 
 def sweep_kernel(tabs, se, st0, thr_hi: int, thr_lo: int, W: int,

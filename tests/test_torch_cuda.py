@@ -63,6 +63,36 @@ def test_sweep_kernel_equals_plain_in_resolve(cuda, s):
     assert torch.equal(got, want)
 
 
+def _load(name):
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(here, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_SWEEP_CASES = _load("sweep_cases")
+
+
+@pytest.mark.parametrize("layout", ["lane", "col"])
+@pytest.mark.parametrize("case_id", [c[0] for c in _SWEEP_CASES.CASES])
+def test_sweep_kernel_equals_plain_on_edge_cases(cuda, case_id, layout):
+    """The sweep kernel == sweep_plain on tests/sweep_cases.py's inputs
+    (the col layout's tables are the lane tables transposed)."""
+    d = _SWEEP_CASES.case(case_id)
+    n = d["se"].shape[1]
+    tabs = [torch.from_numpy(a).to(cuda) for a in d["tabs"]]
+    if layout == "col":
+        tabs = [a.view(n, 256).t().contiguous() for a in tabs]
+    args = (tabs, torch.from_numpy(d["se"]).to(cuda),
+            torch.from_numpy(d["st0"]).to(cuda), *d["thr"], d["W"],
+            d["capl"], d["force_entry"], layout)
+    for a, b in zip(TF.sweep_kernel(*args), TF.sweep_plain(*args),
+                    strict=True):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("s", [1.0, 1000.0])
 def test_walk_kernel_equals_plain(cuda, s):
     """The walk kernel == walk_plain on every output, for a sequence's
@@ -142,11 +172,7 @@ def test_col_sweep_and_fused_equal_plain_and_v1(cuda, s):
 
 def _golden_big(tmp_path, device, engine):
     here = os.path.dirname(os.path.abspath(__file__))
-    spec = importlib.util.spec_from_file_location(
-        "make_data", os.path.join(here, "make_data.py"))
-    make_data = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(make_data)
-    data = make_data.make_all(str(tmp_path))
+    data = _load("make_data").make_all(str(tmp_path))
     with gzip.open(os.path.join(here, "golden",
                                 "sketch_big_k31_m11_s100_a1.gz")) as f:
         golden = f.read()
