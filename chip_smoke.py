@@ -10,7 +10,10 @@ Phases, each printing its result; any failure exits non-zero:
   2. kernels against their plain PyTorch versions on the card, bit-equal
      (integer outputs, tolerance 0): the scan and the v2 scan on a full
      4 Mbp tile at (k, m) = (31, 11), (63, 15), (15, 5) and on a
-     1,024 x 1 kb read batch; every sweep ("lane" layout) of that tile's
+     1,024 x 1 kb read batch; the scan also on the same tile made of
+     tandems and homopolymers (timed beside the random tile) and on every
+     kind of tests/scan_cases.py at its four (k, m), single record and
+     batch; every sweep ("lane" layout) of that tile's
      and that batch's v1 resolves, each again with its tables in the
      "col" layout (col kernel == lane kernel); the sweep on the
      adversarial inputs of tests/sweep_cases.py (and one at the tile's
@@ -23,9 +26,10 @@ Phases, each printing its result; any failure exits non-zero:
      so that launches run back to back (the sweep 1 also at the host's
      pace); every sweep of the tile and batch resolves is timed in both
      layouts, as is the successor-table pass at the tile;
-  3. goldens: the 10 tests/golden sketches, and the CLI's compressed
-     output and stdout, from sketches made on the card, on v1 and again
-     on v2 (SPSP_FUSED=1); the 10 through the exact engine
+  3. goldens: the 10 tests/golden sketches, the CLI's compressed
+     output and stdout, and the CLI's -f outputs (gfam_fam0-3.gz), from
+     sketches made on the card, on v1 and again on v2 (SPSP_FUSED=1);
+     the 10 through the exact engine
      (scan_engine = "legacy");
   4. real size: a 5 Mbp genome (two tiles) and 2,000 x 1 kb reads give
      the same bytes on the card and on the CPU; a desert corpus (a
@@ -44,9 +48,11 @@ After the phases no supersampler_tpu module may have been imported.
 The line before the last is the kernel table, each kernel with its
 time, its plain version's time and its bound (the larger of the bytes
 it must move over the HBM rate and its 32-bit ALU operations over the
-card's scalar peak), the sweeps (sweep 1 of the tile resolve) also with
-the sum over the resolve's five sweeps and their bounds and the batch's
-times; the last line is {"ok": true, "device": {...}}.
+card's scalar peak), the scans also with the batch's time and bound and
+the v1 scan with its time on the tile of repeats, the sweeps (sweep 1
+of the tile resolve) also with the sum over the resolve's five sweeps
+and their bounds and the batch's times; the last line is
+{"ok": true, "device": {...}}.
 Needs one CUDA card; no network.
 """
 
@@ -83,7 +89,7 @@ HBM_BPS = 3.35e12
 ALU_OPS = 67e12
 # 32-bit operations per unit of work, counted low from csrc/
 OPS_HASH = 40        # one XXHash64 of an m-mer (five 64-bit multiplies)
-OPS_FOLD = 8         # one step of the election fold
+OPS_FOLD = 8         # one step of the election fold or a window minimum
 OPS_STEP = 10        # one sweep column step, one sweep event, one walk event
 
 
@@ -254,6 +260,32 @@ def check_scan(packed, k, m, P_rec, last_i) -> int:
     return err
 
 
+def phase_scan_cases(device) -> int:
+    """Phase 2, scan: the kernel against scan_plain on every kind of
+    tests/scan_cases.py at its four (k, m), single record and batch.
+    Returns the largest error."""
+    sc = load_tests_module("scan_cases")
+    worst = 0
+    for kind in sc.KINDS:
+        for k, m in sc.KM:
+            for codes, P_rec, lengths in sc.flat_inputs(
+                    sc.scan_case(kind, k, m)):
+                worst = max(worst, check_scan(
+                    pack_codes(codes, device), k, m, P_rec,
+                    torch.from_numpy(lengths - (k + 1)).to(device)))
+    log(f"  scan kernel == plain on tests/scan_cases.py's "
+        f"{len(sc.KINDS)} kinds ({', '.join(sc.KINDS)}) at (k, m) = "
+        f"{', '.join(map(str, sc.KM))}, single record and batch: "
+        f"bit-equal (max_abs_err {worst})")
+    return worst
+
+
+def pack_codes(codes: np.ndarray, device):
+    from supersampler_tpu_torch.ops.minimizer import pack_2bit
+
+    return pack_2bit(torch.from_numpy(codes)).to(device)
+
+
 def time_pair(kernel_fn, plain_fn, iters=(20, 3)):
     return cuda_ms(kernel_fn, iters[0]), cuda_ms(plain_fn, iters[1])
 
@@ -269,11 +301,14 @@ def bound(nbytes: int, ops: int) -> dict:
 def scan_bound(P: int, n_rec: int, k: int, m: int, v2: bool) -> dict:
     """Read the packed codes (and v1's bounds), write seven int32 tables,
     v1's sync bytes or v2's first-sync words, and the records' init;
-    per position one hash, the fold's W - 1 steps and one sync compare."""
+    per position one hash and one sync compare, and v2's W - 1 fold
+    steps or v1's window-minimum steps (a prefix, a suffix and three
+    window joins)."""
     W = k - m + 1
     out = 28 * P + (4 * (P // 256) if v2 else P) + 16 * n_rec
     nbytes = P // 4 + (0 if v2 else 4 * n_rec) + out
-    return bound(nbytes, P * (OPS_HASH + OPS_FOLD * (W - 1) + 3))
+    steps = W - 1 if v2 else 5
+    return bound(nbytes, P * (OPS_HASH + OPS_FOLD * steps + 3))
 
 
 def sweep_bound(se, st0, xs, capl: int) -> dict:
@@ -333,6 +368,23 @@ def phase_kernels(rng, device, tile_p=TILE_P, tile_l=TILE_L,
             lambda: scan_kernel(packed, K, M, tile_p, last_i),
             lambda: scan_plain(packed, K, M, tile_p, last_i))
 
+    # the same tile made of tandems and homopolymers: every window's
+    # minimum repeats, so every election takes the tie path
+    rep = np.zeros(tile_p, np.uint8)
+    rep[:tile_l] = load_tests_module("scan_cases").tile_codes(
+        int(rng.integers(1 << 31)), tile_l)
+    rpacked = pack_codes(rep, device)
+    for k, m in ((31, 11), (63, 15), (15, 5)):
+        li = torch.tensor([tile_l - k - 1], dtype=torch.int32,
+                          device=device)
+        scan_err = max(scan_err, check_scan(rpacked, k, m, tile_p, li))
+    log(f"  scan kernel == plain on the {tile_p}-position tile of tandems "
+        f"and homopolymers at (k, m) = (31, 11), (63, 15), (15, 5): "
+        f"bit-equal")
+    if timing:
+        res["scan"]["repeats_ms"] = cuda_ms(
+            lambda: scan_kernel(rpacked, K, M, tile_p, last_i), 20)
+
     t = F.scan_field_2d_packed(packed, K, M, tile_p, tile_l)
     entry = F.field_entry_init(t, *thr_w)
     chk = SweepCheck()
@@ -373,11 +425,13 @@ def phase_kernels(rng, device, tile_p=TILE_P, tile_l=TILE_L,
     reads_sw = res["sweeps_reads"] = time_sweeps(bchk.calls, timing)
     log(f"  the {chk.n} tile sweeps and the {bchk.n} batch sweeps again "
         "with their tables in the col layout: col kernel == lane kernel")
+    res["scan"]["batch_bound_ms"] = scan_bound(
+        n_reads * P_rec, n_reads, K, M, False)["bound_ms"]
     if timing:
         li = lengths - (K + 1)
-        res["scan_reads"] = dict(zip(("ms", "plain_ms"), time_pair(
+        res["scan"]["batch_ms"], res["scan"]["batch_plain_ms"] = time_pair(
             lambda: scan_kernel(bpacked, K, M, P_rec, li),
-            lambda: scan_plain(bpacked, K, M, P_rec, li))))
+            lambda: scan_plain(bpacked, K, M, P_rec, li))
     # the kernel entries: sweep 1 of the tile resolve, in each layout,
     # with the sums over its five sweeps
     for name, lay in (("sweep", "lane"), ("sweep_col", "col")):
@@ -537,10 +591,12 @@ def phase_fused(rng, device, tile_p=TILE_P, tile_l=TILE_L, n_reads=1024,
         bpk, K, M, P_rec, 1 << 14, lengths, *thr_w, sweep=sw),
         lambda: F.resolve_field_batched(F.scan_field_batched(
             bpk, K, M, P_rec, lengths), K, M, 1 << 14, P_rec, *thr_w))
+    res["scan2"]["batch_bound_ms"] = scan_bound(
+        n_reads * P_rec, n_reads, K, M, True)["bound_ms"]
     if timing:
-        res["scan2_reads"] = dict(zip(("ms", "plain_ms"), time_pair(
+        res["scan2"]["batch_ms"], res["scan2"]["batch_plain_ms"] = time_pair(
             lambda: FU.scan2_kernel(bpacked, K, M, P_rec),
-            lambda: FU.scan2_plain(bpacked, K, M, P_rec))))
+            lambda: FU.scan2_plain(bpacked, K, M, P_rec))
     return res
 
 
@@ -603,6 +659,30 @@ def phase_goldens(device, workdir, engine="field", v2=False) -> None:
                              "cli_sub_sampler_stdout.txt")
     log(f"  CLI -i simple -s 10: cli_simple.gz bytes and stdout equal "
         f"({label})")
+
+    # -f: the four family genomes through the CLI's fof route
+    fof = os.path.join(workdir, "fam_fof.txt")
+    with open(fof, "w") as f:
+        f.writelines(data[f"fam{i}"] + "\n" for i in range(4))
+    reset_launches()
+    os.chdir(workdir)
+    try:
+        with redirect_stdout(io.StringIO()):
+            rc = cli.main(["-f", fof, "-s", "15", "-t", "4", "-p", "g_"])
+    finally:
+        os.chdir(cwd)
+    counts = read_launches()
+    for i in range(4):
+        with open(os.path.join(workdir, f"g_fam{i}.gz"), "rb") as f:
+            mine = f.read()
+        with open(os.path.join(gold, f"gfam_fam{i}.gz"), "rb") as f:
+            if rc != 0 or mine != f.read():
+                raise AssertionError(f"CLI -f: g_fam{i}.gz differs from "
+                                     f"gfam_fam{i}.gz ({label})")
+    if counts["scan2" if v2 else "scan"] <= 0:
+        raise AssertionError(f"CLI -f: the scan never launched: {counts}")
+    log(f"  CLI -f (4 family genomes) -s 15: gfam_fam0-3.gz bytes equal "
+        f"({label}); launches {counts}")
 
 
 def write_fasta(path, codes_rows, prefix, width=None) -> int:
@@ -888,6 +968,8 @@ def main(argv=None) -> int:
 
     log("[2] kernels vs plain on the card")
     kt = phase_kernels(rng, "cuda")
+    kt["scan"]["max_abs_err"] = max(kt["scan"]["max_abs_err"],
+                                    phase_scan_cases("cuda"))
     edge_err = phase_sweep_edges("cuda")
     kt["walk"] = phase_walk(rng, "cuda")
     kt.update(phase_fused(rng, "cuda"))
@@ -906,11 +988,16 @@ def main(argv=None) -> int:
         phase_desert(rng, "cuda", tmp)
         c1, c2, *bench_genome = phase_bench(rng, tmp)
         c_legacy = phase_bench_legacy("cuda", tmp, *bench_genome)
-    for name, key in (("tile", ""), ("1024 x 1 kb batch", "_reads")):
-        log(f"  times at the {name}: scan {kt['scan' + key]['ms']:.4f} ms "
-            f"(plain {kt['scan' + key]['plain_ms']:.4f} ms), scan2 "
-            f"{kt['scan2' + key]['ms']:.4f} ms (plain "
-            f"{kt['scan2' + key]['plain_ms']:.4f} ms) [{gpu}]")
+    for name, pre in (("tile", ""), ("1024 x 1 kb batch", "batch_")):
+        s1, s2 = kt["scan"], kt["scan2"]
+        log(f"  times at the {name}: scan {s1[pre + 'ms']:.4f} ms (plain "
+            f"{s1[pre + 'plain_ms']:.4f} ms, bound "
+            f"{s1[pre + 'bound_ms']:.4f} ms), scan2 {s2[pre + 'ms']:.4f} ms "
+            f"(plain {s2[pre + 'plain_ms']:.4f} ms, bound "
+            f"{s2[pre + 'bound_ms']:.4f} ms) [{gpu}]")
+    log(f"  scan at the tile of tandems and homopolymers: "
+        f"{kt['scan']['repeats_ms']:.4f} ms (random tile "
+        f"{kt['scan']['ms']:.4f} ms) [{gpu}]")
     for name, key in (("tile", "tile"), ("1024 x 1 kb batch", "reads")):
         sw = kt["sweeps_" + key]
         bounds = ", ".join(f"{b['bound_ms']:.4f}" for b in sw["bounds"])
@@ -937,7 +1024,8 @@ def main(argv=None) -> int:
     def entry(name, key, source, replaces, launches):
         r = kt[key]
         extra = {k: r[k] for k in ("all_sweeps_ms", "all_sweeps_bound_ms",
-                                   "batch_ms", "batch_all_sweeps_ms")
+                                   "batch_ms", "batch_bound_ms",
+                                   "batch_all_sweeps_ms", "repeats_ms")
                  if k in r}
         return {"name": name, "route": "cuda",
                 "source": f"supersampler_tpu_torch/csrc/{source}",

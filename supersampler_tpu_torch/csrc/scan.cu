@@ -8,7 +8,9 @@
 // spsp_scan2 replaces the v2 TPU kernel supersampler_tpu/ops/fused.py
 // _scan2_kernel (launched by _scan2): the same tables in the sweep's
 // column layout, each lane's first sync column and the records' window-0
-// elections. Both share the staging, election and sync code below.
+// elections. Both share the m-mer staging below; spsp_scan2 runs the
+// per-position election fold and sync lookback (elect, strict_min),
+// spsp_scan the window minima (window_minima, elect_min).
 //
 // What it computes, per position j of a flat batch of records laid
 // back to back (record r owns [r*P_rec, (r+1)*P_rec)):
@@ -25,19 +27,31 @@
 // layout's row halo does; wrapped values sit past last_i and are never
 // consumed.
 //
-// What bounds it on the H100: integer ALU work. Each m-mer costs about
-// five 64-bit multiplies for the hash; each position then runs a W-step
-// compare/select fold and a 2W-step sync compare. Memory traffic is
-// small: a quarter byte read and 29 bytes written per position (about
-// 120 MB for a 4 Mbp tile, some 40 us at the HBM rate).
+// What bounds spsp_scan on the H100: at least the bytes it writes, 29 a
+// position (about 122 MB for a 4 Mbp tile, some 37 us at the HBM rate);
+// past that, the latency of its staging and window-minimum phases
+// (chip_scan_probe.py times them apart). Both the election of a window
+// and the sync lookback are sliding-window minima over the m-mer
+// hashes, which a per-position loop would recompute at 3W shared reads
+// and compares a position.
 //
-// What the design does about it: one thread per position, 256 per
-// block. The block stages its codes (with a left halo of W and a right
-// halo of W+m-1 positions) in shared memory and computes each m-mer's
-// canonical value and hash once into shared memory, so the fold and the
-// sync lookback read shared memory instead of recomputing hashes: about
-// 1.5 hashes per position instead of 3W+1. Writes are coalesced (thread
-// j writes position j of every table).
+// What its design does about it: a block of 256 threads covers
+// kScanT = 1,024 positions (thread t owns t + 256q, so each warp store
+// writes 128 contiguous bytes). The block stages its codes (a left halo
+// of W, a right halo of W+m-1 positions) in shared memory and hashes
+// each of its kScanT + 2W m-mers once (about 1.04 hashes a position).
+// It then builds window minima once (van Herk / Gil-Werman): the staged
+// hashes are cut into segments of W, and one thread per segment and
+// direction writes the running minimum from the segment's start
+// (prefix) or end (suffix), with its leftmost and rightmost argmin. The
+// window [s, s+W-1] spans at most two segments, so its minimum is the
+// suffix at s joined with the prefix at s+W-1: a few shared reads a
+// position. The sync lookback of position o is the minimum of two
+// adjacent windows, [o, o+W-1] and [o+W, o+2W-1]. The election takes the
+// minimum's m-mer directly where it is unique; where the minimum occurs
+// more than once (a repeated m-mer: homopolymers, short tandems), the
+// reference fold's outcome follows in closed form from its occurrences
+// (elect_min), found by a search bounded by the window.
 //
 // spsp_scan2 writes the column layout, entry [r, l] at r * n_lanes + l
 // (the counterpart of the TPU's (tiles, 256, 128) blocks without their
@@ -59,6 +73,7 @@
 namespace {
 
 constexpr int kT = 256;      // threads per block; positions per lane
+constexpr int kScanT = 1024; // positions per scan block
 constexpr int kLanes = 8;    // lanes per scan2 block
 constexpr int kPad = kLanes + 1;  // scan2 tile row pitch (no bank clash)
 constexpr int kWarps = kT / 32;
@@ -138,7 +153,9 @@ __host__ __device__ constexpr size_t stage_bytes(int n_mm, int m) {
 
 // Stages the codes of positions [x0, x0 + n_mm + m - 1) (modulo P: the
 // wrap of the TPU layout's row halo) and then every m-mer's canonical
-// value, strand and hash, each computed once. The whole block calls it.
+// value, strand and hash, each computed once: a thread rolls the forward
+// and reverse-complement values over a run of consecutive m-mers, one
+// code a step. The whole block calls it.
 __device__ Stage stage_mmers(unsigned char* smem, const uint8_t* packed,
                              int64_t P, int64_t x0, int n_mm, int m) {
   uint64_t* s_hash = reinterpret_cast<uint64_t*>(smem);
@@ -147,18 +164,29 @@ __device__ Stage stage_mmers(unsigned char* smem, const uint8_t* packed,
   uint8_t* s_code = s_rev + n_mm;
   const int n_c = n_mm + m - 1;
   for (int i = threadIdx.x; i < n_c; i += blockDim.x) {
-    int64_t x = (x0 + i) % P;
-    if (x < 0) x += P;
+    int64_t x = x0 + i;
+    if (x < 0 || x >= P) {  // past either end: no 64-bit division else
+      x %= P;
+      if (x < 0) x += P;
+    }
     s_code[i] = (packed[x >> 2] >> (2 * (x & 3))) & 3;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n_mm; i += blockDim.x) {
-    uint32_t fwd = 0, rc = 0;
-    for (int j = 0; j < m; ++j) {
-      const uint32_t c = s_code[i + j];
-      fwd = (fwd << 2) | c;
-      rc |= (c ^ 2u) << (2 * j);
-    }
+  const int per = (n_mm + blockDim.x - 1) / blockDim.x;
+  const int i0 = threadIdx.x * per;
+  const int i1 = min(i0 + per, n_mm);
+  const uint32_t mask = (1u << (2 * m)) - 1;
+  const int top = 2 * (m - 1);
+  uint32_t fwd = 0, rc = 0;  // the first code in fwd's top, rc's bottom
+  for (int j = 0; j < m - 1 && i0 < i1; ++j) {
+    const uint32_t c = s_code[i0 + j];
+    fwd = (fwd << 2) | c;
+    rc = (rc >> 2) | ((c ^ 2u) << top);
+  }
+  for (int i = i0; i < i1; ++i) {
+    const uint32_t c = s_code[i + m - 1];
+    fwd = ((fwd << 2) | c) & mask;
+    rc = (rc >> 2) | ((c ^ 2u) << top);
     const uint32_t r = rc < fwd;
     const uint32_t canon = r ? rc : fwd;
     s_canon[i] = canon;
@@ -199,17 +227,150 @@ __device__ __forceinline__ bool strict_min(const uint64_t* hash, int s,
 }
 
 // Record rec's window-0 election (the streaming machine's entry state),
-// written when position o is the record's first.
+// written by the thread of the record's first position.
 __device__ __forceinline__ void write_init(int32_t* init, int64_t rec,
-                                           int64_t n_rec, const Stage& st,
-                                           int o, int W, int km) {
-  const Election e0 = elect(st.canon, st.rev, st.hash, o + W, km);
+                                           int64_t n_rec,
+                                           const Election& e0) {
   init[rec] = static_cast<int32_t>(e0.mini | (e0.rev << 30));
   init[n_rec + rec] = e0.pos;
   init[2 * n_rec + rec] = static_cast<int32_t>(e0.hash >> 32);
   init[3 * n_rec + rec] = static_cast<int32_t>(e0.hash);
 }
 
+// Window minima of n_mm staged hashes, cut into segments of W: pre[i]
+// is the minimum over [start of i's segment, i], suf[i] over [i, end of
+// i's segment], each with its leftmost and rightmost argmin as
+// l | r << 16 (shared indices, < 2^16).
+struct MinTabs {
+  const uint64_t* pre_h;
+  const uint64_t* suf_h;
+  const uint32_t* pre_lr;
+  const uint32_t* suf_lr;
+};
+
+__host__ __device__ constexpr size_t align8(size_t n) {
+  return (n + 7) & ~static_cast<size_t>(7);
+}
+
+__host__ __device__ constexpr size_t scan_smem_bytes(int n_mm, int m) {
+  return align8(stage_bytes(n_mm, m)) +
+         static_cast<size_t>(n_mm) * 2 * (8 + 4);
+}
+
+// Builds MinTabs at smem (after the stage). One thread per segment and
+// direction walks its segment with the running minimum in registers;
+// the whole block calls it.
+__device__ MinTabs window_minima(unsigned char* smem, const uint64_t* hash,
+                                 int n_mm, int W) {
+  uint64_t* pre_h = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* suf_h = pre_h + n_mm;
+  uint32_t* pre_lr = reinterpret_cast<uint32_t*>(suf_h + n_mm);
+  uint32_t* suf_lr = pre_lr + n_mm;
+  const int n_seg = (n_mm + W - 1) / W;
+  for (int task = threadIdx.x; task < 2 * n_seg; task += blockDim.x) {
+    const bool pre = task < n_seg;
+    const int a = (pre ? task : task - n_seg) * W;
+    const int b = min(a + W, n_mm) - 1;
+    const int step = pre ? 1 : -1;
+    uint64_t* out_h = pre ? pre_h : suf_h;
+    uint32_t* out_lr = pre ? pre_lr : suf_lr;
+    int i = pre ? a : b;
+    uint64_t h = hash[i];
+    uint32_t l = i, r = i;
+    out_h[i] = h;
+    out_lr[i] = l | (r << 16);
+    for (int n = b - a; n > 0; --n) {
+      i += step;
+      const uint64_t x = hash[i];
+      if (x < h) {
+        h = x;
+        l = r = i;
+      } else if (x == h) {
+        if (pre)
+          r = i;
+        else
+          l = i;
+      }
+      out_h[i] = h;
+      out_lr[i] = l | (r << 16);
+    }
+  }
+  __syncthreads();
+  return {pre_h, suf_h, pre_lr, suf_lr};
+}
+
+// The minimum of the hashes [s, s+W-1] and its leftmost and rightmost
+// shared index. suf[s] covers s up to its segment's end and pre[s+W-1]
+// the next segment up to s+W-1 (or, where s starts a segment, both
+// cover the same segment).
+struct WinMin {
+  uint64_t h;
+  int l, r;
+};
+
+__device__ __forceinline__ uint64_t min_u64(uint64_t a, uint64_t b) {
+  return a < b ? a : b;
+}
+
+__device__ __forceinline__ WinMin window_min(const MinTabs& mt, int s,
+                                             int W) {
+  const int e = s + W - 1;
+  const uint64_t hs = mt.suf_h[s], hp = mt.pre_h[e];
+  const uint32_t ls = mt.suf_lr[s], lp = mt.pre_lr[e];
+  if (hp < hs) return {hp, static_cast<int>(lp & 0xffff),
+                       static_cast<int>(lp >> 16)};
+  return {hs, static_cast<int>(ls & 0xffff),
+          static_cast<int>((hs < hp ? ls : lp) >> 16)};
+}
+
+// regular_minimizer_pos (elect's fold) of the window whose first m-mer
+// sits at shared index s, from its minimum. Equal hashes are equal
+// canonical m-mers (XXHash64 is a bijection on 64-bit words), so the
+// fold's outcome depends only on where the minimal m-mer occurs, with
+// r1 its rightmost occurrence (window offsets 0 .. km):
+//   * r1 forward: the leftmost forward occurrence (the fold takes every
+//     forward tie to its left);
+//   * r1 reverse and r1 = km: position 0 (the fold's start value, which
+//     no tie beats);
+//   * r1 reverse, r1 < km: min(r1, km - r2) with r2 the rightmost
+//     reverse occurrence left of r1 (a reverse tie takes the mirrored
+//     position km - off once, if smaller), or r1 where there is none.
+// Occurrences on the other strand never take. A unique minimum needs
+// no search.
+__device__ __forceinline__ Election elect_min(const Stage& st,
+                                              const MinTabs& mt, int s,
+                                              int W) {
+  const int km = W - 1;
+  const WinMin w = window_min(mt, s, W);
+  Election e;
+  e.hash = w.h;
+  e.mini = st.canon[w.r];
+  e.rev = st.rev[w.r];
+  const int r1 = w.r - s;
+  e.pos = r1;
+  if (e.rev) {
+    if (r1 == km) {
+      e.pos = 0;
+    } else {
+      for (int x = w.r - 1; x >= w.l; --x) {
+        if (st.rev[x] && st.canon[x] == e.mini) {
+          e.pos = min(r1, km - (x - s));
+          break;
+        }
+      }
+    }
+  } else if (w.l != w.r) {
+    int x = w.l;  // stops at w.r at the latest
+    while (st.rev[x] || st.canon[x] != e.mini) ++x;
+    e.pos = x - s;
+  }
+  return e;
+}
+
+// Thread t of block b writes positions b*kScanT + t + kT*q, q < 4. For
+// position o (block-local) the entering m-mer has shared index o + 2W,
+// the election of window j+1 is that of index o+W+1, and the sync
+// lookback covers indices [o, o+2W-1].
 __global__ void scan_kernel(const uint8_t* __restrict__ packed, int64_t P,
                             int64_t P_rec, int k, int m,
                             const int32_t* __restrict__ last_i,
@@ -224,27 +385,43 @@ __global__ void scan_kernel(const uint8_t* __restrict__ packed, int64_t P,
                             int32_t* __restrict__ init, int64_t n_rec) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int W = k - m + 1;
-  const int km = k - m;
-  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * kT;
-  const Stage st = stage_mmers(smem, packed, P, j0 - W, kT + 2 * W, m);
+  const int n_mm = kScanT + 2 * W;
+  const int64_t j0 = static_cast<int64_t>(blockIdx.x) * kScanT;
+  const Stage st = stage_mmers(smem, packed, P, j0 - W, n_mm, m);
+  const MinTabs mt =
+      window_minima(smem + align8(stage_bytes(n_mm, m)), st.hash, n_mm, W);
 
   const int t = threadIdx.x;
-  const int64_t j = j0 + t;
-  if (j >= P) return;
-  const Tables v = position_tables(st, t, W, km);
-  h_hi[j] = static_cast<int32_t>(v.h0 >> 32);
-  h_lo[j] = static_cast<int32_t>(v.h0);
-  cv[j] = static_cast<int32_t>(v.cv);
-  em[j] = static_cast<int32_t>(v.e.mini | (v.e.rev << 30));
-  ep[j] = v.e.pos;
-  eh_hi[j] = static_cast<int32_t>(v.e.hash >> 32);
-  eh_lo[j] = static_cast<int32_t>(v.e.hash);
+  int64_t rec = (j0 + t) / P_rec;
+  int64_t jloc = j0 + t - rec * P_rec;
+#pragma unroll
+  for (int q = 0; q < kScanT / kT; ++q) {
+    const int o = t + q * kT;
+    const int64_t j = j0 + o;
+    if (j >= P) break;
+    const uint64_t h0 = st.hash[o + 2 * W];
+    h_hi[j] = static_cast<int32_t>(h0 >> 32);
+    h_lo[j] = static_cast<int32_t>(h0);
+    cv[j] = static_cast<int32_t>(
+        st.canon[o + 2 * W] |
+        (static_cast<uint32_t>(st.rev[o + 2 * W]) << 30));
+    const Election e = elect_min(st, mt, o + W + 1, W);
+    em[j] = static_cast<int32_t>(e.mini | (e.rev << 30));
+    ep[j] = e.pos;
+    eh_hi[j] = static_cast<int32_t>(e.hash >> 32);
+    eh_lo[j] = static_cast<int32_t>(e.hash);
 
-  const int64_t rec = j / P_rec;
-  const int64_t jloc = j - rec * P_rec;
-  sync[j] = jloc >= 2 * W && jloc <= last_i[rec] &&
-            strict_min(st.hash, t + 2 * W, 2 * W);
-  if (jloc == 0) write_init(init, rec, n_rec, st, t, W, km);
+    const uint64_t look =
+        min_u64(min_u64(mt.suf_h[o], mt.pre_h[o + W - 1]),
+                min_u64(mt.suf_h[o + W], mt.pre_h[o + 2 * W - 1]));
+    sync[j] = jloc >= 2 * W && jloc <= last_i[rec] && h0 < look;
+    if (jloc == 0) write_init(init, rec, n_rec, elect_min(st, mt, o + W, W));
+    jloc += kT;
+    while (jloc >= P_rec) {
+      jloc -= P_rec;
+      ++rec;
+    }
+  }
 }
 
 // The v2 scan: the same tables for kLanes lanes of 256 positions, written
@@ -301,7 +478,9 @@ __global__ void scan2_kernel(const uint8_t* __restrict__ packed, int64_t P,
     if ((t & 31) == 0)
       warp_fs[li * kWarps + (t >> 5)] =
           ballot ? (t & ~31) + __ffs(ballot) - 1 : kT;
-    if (jloc == 0) write_init(init, rec, n_rec, st, o, W, km);
+    if (jloc == 0)
+      write_init(init, rec, n_rec,
+                 elect(st.canon, st.rev, st.hash, o + W, km));
   }
   __syncthreads();
   if (t < nl) {
@@ -342,8 +521,9 @@ extern "C" int spsp_scan(const uint8_t* packed, int64_t P, int64_t P_rec,
                          void* stream) {
   if (P <= 0) return 0;
   const int W = k - m + 1;
-  const size_t smem = stage_bytes(kT + 2 * W, m);
-  const int64_t blocks = (P + kT - 1) / kT;
+  // at most 43,704 B (W = 63 at k = 63, m = 1): under the 48 KB default
+  const size_t smem = scan_smem_bytes(kScanT + 2 * W, m);
+  const int64_t blocks = (P + kScanT - 1) / kScanT;
   scan_kernel<<<static_cast<unsigned>(blocks), kT, smem,
                 static_cast<cudaStream_t>(stream)>>>(
       packed, P, P_rec, k, m, last_i, h_hi, h_lo, cv, em, ep, eh_hi, eh_lo,

@@ -73,6 +73,21 @@ def _load(name):
 
 
 _SWEEP_CASES = _load("sweep_cases")
+_SCAN_CASES = _load("scan_cases")
+
+
+@pytest.mark.parametrize("k,m", _SCAN_CASES.KM)
+@pytest.mark.parametrize("kind", _SCAN_CASES.KINDS)
+def test_scan_kernel_equals_plain_on_cases(cuda, kind, k, m):
+    """The scan kernel == scan_plain on tests/scan_cases.py's repeats,
+    single record and batch (ties in the window minimum)."""
+    d = _SCAN_CASES.scan_case(kind, k, m)
+    for codes, P_rec, lengths in _SCAN_CASES.flat_inputs(d):
+        packed = pack_2bit(torch.from_numpy(codes)).to(cuda)
+        last_i = torch.from_numpy(lengths - (k + 1)).to(cuda)
+        for a, b in zip(scan_kernel(packed, k, m, P_rec, last_i),
+                        scan_plain(packed, k, m, P_rec, last_i), strict=True):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("layout", ["lane", "col"])

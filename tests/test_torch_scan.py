@@ -12,6 +12,8 @@ import torch
 import supersampler_tpu.ops.field as JF
 import supersampler_tpu_torch.ops.field as TF
 from supersampler_tpu.ops.minimizer import pack_2bit_np
+from supersampler_tpu_torch.ops.minimizer import mmer_build, mmer_elect
+from tests import scan_cases as SC
 
 _jscan = jax.jit(JF.scan_field_2d, static_argnums=(1, 2, 3, 5))
 _jscan_b = jax.jit(JF.scan_field_batched, static_argnums=(1, 2, 3))
@@ -78,17 +80,58 @@ def test_scan_field_batched_matches_jax(k, m, P_rec, lengths):
     _assert_tables_equal(jt, tt, JF.BatchedFieldTables._fields)
 
 
-def test_scan_matches_mosaic_kernel_interpret():
-    """Against the Pallas scan kernel itself (field_core_mosaic in
-    interpret mode, as tests/test_field.py runs it): entering hashes
-    and values, shifted elections, masked sync and window-0 election."""
+@pytest.mark.parametrize("k,m", SC.KM)
+@pytest.mark.parametrize("kind", SC.KINDS)
+def test_scan_cases_match_jax(kind, k, m):
+    """tests/scan_cases.py's repeats, single record and batch: the
+    election's tie rules and the sync's strict minimum on windows whose
+    minimal m-mer occurs more than once."""
+    d = SC.scan_case(kind, k, m)
+    jt = _jscan(jnp.asarray(d["codes"]), k, m, SC.P,
+                jnp.int32(d["length"]), True)
+    tt = TF.scan_field_2d(torch.from_numpy(d["codes"]), k, m, SC.P,
+                          d["length"])
+    _assert_tables_equal(jt, tt, JF.FieldTables._fields)
+    packed = np.stack([pack_2bit_np(r) for r in d["batch"]])
+    jt = _jscan_b(jnp.asarray(packed), k, m, SC.P_REC,
+                  jnp.asarray(d["lengths"]))
+    tt = TF.scan_field_batched(torch.from_numpy(packed), k, m, SC.P_REC,
+                               torch.from_numpy(d["lengths"]))
+    _assert_tables_equal(jt, tt, JF.BatchedFieldTables._fields)
+
+
+@pytest.mark.parametrize("k,m", SC.KM)
+@pytest.mark.parametrize("kind", SC.KINDS)
+def test_closed_form_election_matches_fold(kind, k, m):
+    """The election in closed form (what csrc/scan.cu computes from the
+    window minimum) == the port's fold (mmer_elect) on every window of
+    the case, and the generator's hash == the port's."""
+    d = SC.scan_case(kind, k, m)
+    for codes in (d["codes"], d["batch"].reshape(-1)):
+        n = len(codes) - k
+        canon, rev, hh = mmer_build(torch.from_numpy(codes.astype(np.int64)),
+                                    m, n + k - m)
+        hh_u = hh.numpy().view(np.uint64)
+        np.testing.assert_array_equal(SC.xxh64(canon.numpy()), hh_u)
+        want = mmer_elect(canon, rev, hh, k, m, n)
+        got = SC.elect_closed_form(canon.numpy(), rev.numpy(), hh_u, k, m, n)
+        for name, a, b in zip(("value", "pos", "rev", "hash"), got, want):
+            b = b.numpy()
+            np.testing.assert_array_equal(
+                a, b.view(np.uint64) if name == "hash" else b, err_msg=name)
+
+
+def _mosaic_case(codes, k, m, L):
+    """The port's scan_field_2d against the Pallas scan kernel itself
+    (field_core_mosaic in interpret mode, as tests/test_field.py runs
+    it): entering hashes and values, shifted elections, masked sync and
+    window-0 election."""
     from supersampler_tpu.ops.scan_kernel import field_core_mosaic
 
-    k, m, C, P, L = 31, 11, 512, 4096, 4000
+    C = 512
+    P = len(codes)
     W = k - m + 1
     R = P // C
-    codes = np.random.default_rng(5).integers(0, 4, P, dtype=np.uint8)
-    codes[L:] = 0
     (h0, cv, em_r, ep_r, eh_r, sync, em, ep, er, eh, _fl) = \
         field_core_mosaic(jnp.asarray(codes), k, m, P, C,
                           jnp.arange(R) == 0, interpret=True)
@@ -111,3 +154,16 @@ def test_scan_matches_mosaic_kernel_interpret():
     assert int(tt.init_p) == int(np.asarray(ep)[0, 0])
     assert int(u32(tt.init_h_hi)) == int(np.asarray(eh.hi)[0, 0])
     assert int(u32(tt.init_h_lo)) == int(np.asarray(eh.lo)[0, 0])
+
+
+def test_scan_matches_mosaic_kernel_interpret():
+    k, m, P, L = 31, 11, 4096, 4000
+    codes = np.random.default_rng(5).integers(0, 4, P, dtype=np.uint8)
+    codes[L:] = 0
+    _mosaic_case(codes, k, m, L)
+
+
+def test_scan_case_matches_mosaic_kernel_interpret():
+    """The tandem case (every window ties) through the Pallas kernel."""
+    d = SC.scan_case("tandem", 31, 11)
+    _mosaic_case(d["codes"], 31, 11, d["length"])
