@@ -21,7 +21,9 @@ Phases, each printing its result; any failure exits non-zero:
      (fused_single / fused_batch), whose fetch arrays must equal v1's
      there, on the tile with a 3 kb homopolymer (prefix passes 2..4) and
      at s = 1; the walk over a full tile's successor words at s = 1000
-     and s = 1, and over the next tile entered from its carry. Kernel
+     and s = 1, over the next tile entered from its carry, over every
+     kind of tests/walk_cases.py at 1, 3 and 64 blocks, and as the
+     1-block walk of a 1 kb record (timed beside the tile). Kernel
      and plain times come from CUDA events, with the queue filled first
      so that launches run back to back (the sweep 1 also at the host's
      pace); every sweep of the tile and batch resolves is timed in both
@@ -446,13 +448,56 @@ def phase_kernels(rng, device, tile_p=TILE_P, tile_l=TILE_L,
     return res
 
 
+def check_walk(words, init5, what: str) -> tuple:
+    """The walk kernel against walk_plain; returns the kernel's result."""
+    from supersampler_tpu_torch.ops import walker as TW
+
+    got = TW.walk_kernel(words, init5)
+    err = max_abs_err(got, TW.walk_plain(words, init5))
+    if err:
+        raise AssertionError(f"walk kernel != plain on {what}: max_abs_err "
+                             f"{err}")
+    return got
+
+
+def phase_walk_cases(device) -> None:
+    """Phase 2, walk: the kernel against walk_plain on every kind of
+    tests/walk_cases.py at each of its block counts."""
+    from supersampler_tpu_torch.ops import walker as TW
+    from supersampler_tpu_torch.ops.minimizer import scan_tables_2d_packed
+    from supersampler_tpu_torch.sketch import TorchSubsampler
+
+    def scan_words(codes, s, n_pad):
+        thr = TorchSubsampler(k=K, m=M, s=s, device=device).threshold
+        t = scan_tables_2d_packed(pack_codes(codes, device), K, M,
+                                  codes.size, codes.size + 1000, thr >> 32,
+                                  thr & 0xFFFFFFFF)
+        return (TW.pack_succ(t, n_pad).cpu().numpy(),
+                TW._init5_from_tables(t).cpu().numpy())
+
+    wc = load_tests_module("walk_cases")
+    for kind in wc.KINDS:
+        for nb in wc.N_BLOCKS:
+            words, init5 = wc.walk_case(kind, nb, scan_words=scan_words)
+            check_walk(torch.from_numpy(words).to(device),
+                       torch.from_numpy(init5).to(device),
+                       f"walk case {kind} at {nb} blocks")
+    log(f"  walk kernel == plain on tests/walk_cases.py's {len(wc.KINDS)} "
+        f"kinds ({', '.join(wc.KINDS)}) at {wc.N_BLOCKS} blocks: bit-equal "
+        f"(max_abs_err 0)")
+
+
 def phase_walk(rng, device, tile_p=TILE_P, timing=True):
     """Phase 2, walk: the kernel against walk_plain over the successor
     words of a full tile and of the next tile (entered from the first's
-    carry), at s = 1000 and s = 1. Returns {max_abs_err, ms, plain_ms,
-    ms_s1, plain_ms_s1, succ_ms} (times at the first tile)."""
+    carry), at s = 1000 and s = 1, on tests/walk_cases.py, and as the
+    1-block walk of a 1 kb record. Returns {max_abs_err, ms, plain_ms,
+    ms_s1, plain_ms_s1, one_block_ms, one_block_plain_ms, succ_ms}
+    (times at the first tile)."""
     from supersampler_tpu_torch.ops import walker as TW
-    from supersampler_tpu_torch.ops.minimizer import pack_2bit, succ_tables
+    from supersampler_tpu_torch.ops.minimizer import (pack_2bit,
+                                                      scan_tables_2d_packed,
+                                                      succ_tables)
     from supersampler_tpu_torch.ops.scan_kernel import scan_kernel
     from supersampler_tpu_torch.sketch import TorchSubsampler
 
@@ -476,16 +521,11 @@ def phase_walk(rng, device, tile_p=TILE_P, timing=True):
             if init5 is None:
                 init5 = TW._init5_from_tables(tab)
                 fb = TW._fb_from_tables(tab)
-            got = TW.walk_kernel(words, init5)
-            err = max_abs_err(got, TW.walk_plain(words, init5))
-            if err:
-                raise AssertionError(f"walk kernel != plain at s={s}, tile "
-                                     f"{t}: max_abs_err {err}")
-            res["max_abs_err"] = max(res["max_abs_err"], err)
+            got = check_walk(words, init5, f"tile {t} at s={s:g}")
             log(f"  walk kernel == plain at s={s:g}, tile {t} "
                 f"({'entered from the carry' if t else 'window-0 entry'}): "
                 f"{int(got[4][0])} events, {int(got[3].sum())} emits, "
-                f"bit-equal (max_abs_err {err})")
+                f"bit-equal (max_abs_err 0)")
             if t == 0 and not key:
                 res.update(walk_bound(got))
             if t == 0 and timing:
@@ -497,6 +537,22 @@ def phase_walk(rng, device, tile_p=TILE_P, timing=True):
                         lambda: succ_tables(tabs, init[:, 0], K, M, L_t,
                                             *thr_w), 5)
             init5, fb = TW._carry_next(got[4], tab, fb, own)
+    phase_walk_cases(device)
+    # the 1-block walk: a 1 kb record padded to 2,048 positions, as the
+    # batch route's per-record fallback walks it
+    read = np.zeros(2048, np.uint8)
+    read[:1000] = rng.integers(0, 4, 1000, dtype=np.uint8)
+    thr = TorchSubsampler(k=K, m=M, s=S, device=device).threshold
+    t1 = scan_tables_2d_packed(pack_codes(read, device), K, M, 2048, 1000,
+                               thr >> 32, thr & 0xFFFFFFFF)
+    words, init5 = TW.pack_succ(t1, 2048), TW._init5_from_tables(t1)
+    got = check_walk(words, init5, "the 1-block walk")
+    log(f"  walk kernel == plain on the 1-block walk of a 1 kb record: "
+        f"{int(got[4][0])} events, bit-equal (max_abs_err 0)")
+    if timing:
+        res["one_block_ms"], res["one_block_plain_ms"] = time_pair(
+            lambda: TW.walk_kernel(words, init5),
+            lambda: TW.walk_plain(words, init5))
     return res
 
 
@@ -745,13 +801,12 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def phase_desert(rng, device, workdir, long_len=12_000_000, single_len=100_000, n_reads=2000,
-                 n_deserts=20) -> None:
-    """Phase 4: records the field resolve cannot settle, on all three
-    routes. The field engine on the card must fall back on each route
-    and give the bytes of the CPU and of the legacy engine on the card."""
-    from supersampler_tpu_torch.sketch import TorchSubsampler
-
+def desert_corpus(rng, workdir, long_len=12_000_000, single_len=100_000,
+                  n_reads=2000, n_deserts=20):
+    """The desert corpus as a FASTA in workdir: n_reads 1 kb reads with
+    n_deserts records of 500 random + 3,000 T + 500 random among them, a
+    single_len record with a 3 kb poly-A and a long_len record with a
+    3 kb poly-T inside tile 1. Returns (path, bases)."""
     own = TILE_P - 512
     A, T = 0, 3                          # codes of _ACGT
     desert = np.full(3000, T, np.uint8)
@@ -768,7 +823,17 @@ def phase_desert(rng, device, workdir, long_len=12_000_000, single_len=100_000, 
     at = own + (long_len - own) // 2      # inside tile 1
     long_rec[at : at + 3000] = T
     path = os.path.join(workdir, "desert.fa")
-    bases = write_fasta(path, recs + [single, long_rec], b"d", width=80)
+    return path, write_fasta(path, recs + [single, long_rec], b"d", width=80)
+
+
+def phase_desert(rng, device, workdir, **sizes) -> None:
+    """Phase 4: records the field resolve cannot settle, on all three
+    routes. The field engine on the card must fall back on each route
+    and give the bytes of the CPU and of the legacy engine on the card.
+    sizes: desert_corpus's."""
+    from supersampler_tpu_torch.sketch import TorchSubsampler
+
+    path, bases = desert_corpus(rng, workdir, **sizes)
     out, walls = {}, {}
     for name, dev, engine in (("card", device, "field"),
                               ("cpu", "cpu", "field"),
@@ -958,7 +1023,8 @@ def main(argv=None) -> int:
     # ptxas: "Compiling entry function '<mangled name>'", then its use
     names = (("scan2_kernel", "scan2"), ("scan_kernel", "scan"),
              ("sweep_kernelILb0E", "sweep (lane)"),
-             ("sweep_kernelILb1E", "sweep (col)"), ("walk_kernel", "walk"))
+             ("sweep_kernelILb1E", "sweep (col)"), ("walk_maps", "walk maps"),
+             ("walk_compose", "walk compose"), ("walk_emit", "walk emit"))
     for line in (_build.build_log or "").splitlines():
         if "entry function" in line:
             log("  ptxas, " + next((n for key, n in names if key in line),
@@ -1012,7 +1078,8 @@ def main(argv=None) -> int:
     w = kt["walk"]
     log(f"  walk at the tile: s=1000 {w['ms']:.4f} ms (plain "
         f"{w['plain_ms']:.4f} ms), s=1 {w['ms_s1']:.4f} ms (plain "
-        f"{w['plain_ms_s1']:.4f} ms); successor-table pass "
+        f"{w['plain_ms_s1']:.4f} ms); 1-block walk {w['one_block_ms']:.4f} "
+        f"ms (plain {w['one_block_plain_ms']:.4f} ms); successor-table pass "
         f"{w['succ_ms']:.4f} ms [{gpu}]")
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "supersampler_tpu"))
@@ -1025,7 +1092,8 @@ def main(argv=None) -> int:
         r = kt[key]
         extra = {k: r[k] for k in ("all_sweeps_ms", "all_sweeps_bound_ms",
                                    "batch_ms", "batch_bound_ms",
-                                   "batch_all_sweeps_ms", "repeats_ms")
+                                   "batch_all_sweeps_ms", "repeats_ms",
+                                   "ms_s1", "one_block_ms")
                  if k in r}
         return {"name": name, "route": "cuda",
                 "source": f"supersampler_tpu_torch/csrc/{source}",

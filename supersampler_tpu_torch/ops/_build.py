@@ -122,7 +122,9 @@ def lib() -> ctypes.CDLL:
             [_P] * 7 + [_P, _P, _U32, _U32, _I, _I, _I, _I, _I]
             + [_P] * 4 + [_P])
         lb.spsp_walk.restype = _I
-        lb.spsp_walk.argtypes = [_P, _I] + [_P] * 7
+        lb.spsp_walk.argtypes = [_P, _I] + [_P] * 8
+        lb.spsp_walk_work_bytes.restype = _I64
+        lb.spsp_walk_work_bytes.argtypes = [_I]
         _lib = lb
         return _lib
 

@@ -1,4 +1,4 @@
-"""The exact fallback engine's serial chain walk, compaction and carry.
+"""The exact fallback engine's chain walk, compaction and carry.
 
 Counterpart of supersampler_tpu/ops/walker.py. The successor tables
 (ops/minimizer.py ``succ_tables``) give, for every position and event
@@ -6,10 +6,11 @@ type, the next event; the super-k-mer boundary chain is their walk from
 the window-0 election (reference SubSampler.cpp:367-454). ``pack_succ``
 packs both tables and the select bits into one int32 per position,
 ``walk_kernel`` chases the chain (the CUDA kernel csrc/walk.cu on a CUDA
-tensor, ``walk_plain`` on a CPU tensor), ``_compact_emits`` gathers the
-selected boundaries and their payloads into one fetch array, and
-``_carry_next`` hands the walk's final state to the next tile without
-a host read.
+tensor: per-block transfer maps composed across blocks, then every block
+re-walked from its true entry; ``walk_plain`` on a CPU tensor),
+``_compact_emits`` gathers the selected boundaries and their payloads
+into one fetch array, and ``_carry_next`` hands the walk's final state
+to the next tile without a host read.
 
 Packed word layout (bits), per loop position j; the two node types sit
 in symmetric 16-bit halves, so the walker decodes with one shift by
@@ -149,13 +150,15 @@ def walk_kernel(packed: torch.Tensor, init5: torch.Tensor):
     lib = _build.lib()
     n_blocks = packed.numel() // _BP
     dev = packed.device
-    outs = [torch.full((n_blocks, _BP), -1, dtype=_I32, device=dev)
+    outs = [torch.empty((n_blocks, _BP), dtype=_I32, device=dev)
             for _ in range(3)]
     cnt = torch.empty(n_blocks, dtype=_I32, device=dev)
     scal = torch.empty(6, dtype=_I32, device=dev)
+    work = torch.empty(lib.spsp_walk_work_bytes(n_blocks), dtype=torch.uint8,
+                       device=dev)
     err = lib.spsp_walk(packed.data_ptr(), n_blocks, init5.data_ptr(),
                         *(a.data_ptr() for a in outs), cnt.data_ptr(),
-                        scal.data_ptr(),
+                        scal.data_ptr(), work.data_ptr(),
                         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "spsp_walk")
     walk_kernel.launches += 1

@@ -74,6 +74,7 @@ def _load(name):
 
 _SWEEP_CASES = _load("sweep_cases")
 _SCAN_CASES = _load("scan_cases")
+_WALK_CASES = _load("walk_cases")
 
 
 @pytest.mark.parametrize("k,m", _SCAN_CASES.KM)
@@ -135,6 +136,33 @@ def test_walk_kernel_equals_plain(cuda, s):
             assert torch.equal(a, b)
         assert int(got[4][0]) > 1000      # events walked
         init5, fb = TW._carry_next(got[4], tab, fb, own)
+
+
+@pytest.mark.parametrize("n_blocks", _WALK_CASES.N_BLOCKS)
+@pytest.mark.parametrize("kind", _WALK_CASES.KINDS)
+def test_walk_kernel_equals_plain_on_cases(cuda, kind, n_blocks):
+    """The walk kernel == walk_plain on tests/walk_cases.py's words:
+    chains that never merge, entries at the last candidate offset, ends
+    mid-walk, late or absent entries, exits past n_pad, all or no events
+    selected, alternating types, and real scan tables."""
+    from supersampler_tpu_torch.ops import walker as TW
+    from supersampler_tpu_torch.ops.minimizer import scan_tables_2d_packed
+
+    def scan_words(codes, s, n_pad):
+        thr = compute_threshold(31, 11, s)
+        t = scan_tables_2d_packed(pack_2bit(torch.from_numpy(codes)).to(cuda),
+                                  31, 11, codes.size, codes.size + 1000,
+                                  thr >> 32, thr & 0xFFFFFFFF)
+        return (TW.pack_succ(t, n_pad).cpu().numpy(),
+                TW._init5_from_tables(t).cpu().numpy())
+
+    words, init5 = _WALK_CASES.walk_case(kind, n_blocks,
+                                         scan_words=scan_words)
+    words = torch.from_numpy(words).to(cuda)
+    init5 = torch.from_numpy(init5).to(cuda)
+    for a, b in zip(TW.walk_kernel(words, init5),
+                    TW.walk_plain(words, init5), strict=True):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("k,m", [(31, 11), (63, 15), (15, 5)])

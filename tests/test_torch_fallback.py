@@ -16,11 +16,11 @@ import random
 import numpy as np
 import pytest
 
-from supersampler_tpu.native import clean_pack_native
 from supersampler_tpu.oracle.subsampler import OracleSubsampler
 from supersampler_tpu.sketch import subsample_file as jax_subsample_file
 from supersampler_tpu.sketch.pipeline import TpuSubsampler
 from supersampler_tpu.sketch.stats import print_stat as jax_print_stat
+from supersampler_tpu_torch.native import clean_pack_native
 from supersampler_tpu_torch.sketch import (TorchSubsampler, print_stat,
                                            subsample_file)
 from supersampler_tpu_torch.sketch import pipeline as TP

@@ -4,8 +4,10 @@ Successor tables (supersampler_tpu_torch.ops.minimizer.scan_tables_2d_
 packed vs supersampler_tpu.ops.minimizer.scan_tables_2d), pack_succ,
 the walk (walk_plain vs walk_xla, the JAX walk's CPU form: one block of
 n_pad), compaction (DeviceChain), the tile carry and the field<->walker
-state converters, on numpy-seeded inputs. Tolerance: bit-exact on every
-field and array."""
+state converters, on numpy-seeded inputs; the walk also on every kind of
+tests/walk_cases.py, where the numpy model of the CUDA walk's block
+design (walk_cases.block_model) must equal walk_plain. Tolerance:
+bit-exact on every field and array."""
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +23,7 @@ from supersampler_tpu.core.scalar import compute_threshold
 from supersampler_tpu.ops import u64 as JU
 from supersampler_tpu.ops.minimizer import pack_2bit_np, scan_tables_2d
 from supersampler_tpu_torch.ops.minimizer import scan_tables_2d_packed
+from tests import walk_cases as WC
 
 _jscan = jax.jit(scan_tables_2d, static_argnums=(1, 2, 3))
 _jscan_field = jax.jit(JF.scan_field_2d, static_argnums=(1, 2, 3, 5))
@@ -196,3 +199,48 @@ def test_converters_match_jax(carried):
             tft, torch.from_numpy(np.asarray(sc).copy()), tentry, k, m,
             own, *thr)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _scan_words(codes, s, n_pad):
+    """walk_cases' scan kinds: the port's successor words and window-0
+    entry of a record longer than the codes (k = 31, m = 11)."""
+    L = codes.size + 1000
+    tt = scan_tables_2d_packed(torch.from_numpy(pack_2bit_np(codes)), 31, 11,
+                               codes.size, L, *_thr(31, 11, s))
+    return TW.pack_succ(tt, n_pad).numpy(), TW._init5_from_tables(tt).numpy()
+
+
+def _walk_case(kind, n_blocks):
+    words, init5 = WC.walk_case(kind, n_blocks, scan_words=_scan_words)
+    return torch.from_numpy(words), torch.from_numpy(init5)
+
+
+@pytest.mark.parametrize("n_blocks", WC.N_BLOCKS)
+@pytest.mark.parametrize("kind", WC.KINDS)
+def test_walk_cases_plain_matches_walk_xla(kind, n_blocks):
+    words, init5 = _walk_case(kind, n_blocks)
+    _check_walk(jnp.asarray(words.numpy()), jnp.asarray(init5.numpy()),
+                words, init5)
+
+
+def _check_block_model(kind, n_blocks, G=None):
+    words, init5 = _walk_case(kind, n_blocks)
+    want = TW.walk_plain(words, init5)
+    for got, w in zip(WC.block_model(words.numpy(), init5.numpy(), G), want,
+                      strict=True):
+        np.testing.assert_array_equal(got, w.numpy())
+
+
+@pytest.mark.parametrize("n_blocks", WC.N_BLOCKS)
+@pytest.mark.parametrize("kind", WC.KINDS)
+def test_block_model_matches_walk_plain(kind, n_blocks):
+    """The three passes of csrc/walk.cu (maps, composition, emit) in
+    numpy == walk_plain, every output, -1 past cnt included."""
+    _check_block_model(kind, n_blocks)
+
+
+@pytest.mark.parametrize("kind", WC.KINDS)
+def test_block_model_many_groups(kind):
+    """64 blocks in 16 groups of 4: the chase across groups and the
+    state on entry to every block of a group."""
+    _check_block_model(kind, 64, G=4)
