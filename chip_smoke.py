@@ -9,11 +9,11 @@ Phases, each printing its result; any failure exits non-zero:
      from csrc/, one process per source, all started together;
   2. kernels against their plain PyTorch versions on the card, bit-equal
      (integer outputs, tolerance 0): the scan and the v2 scan on a full
-     4 Mbp tile at (k, m) = (31, 11), (63, 15), (15, 5) and on a
-     1,024 x 1 kb read batch; the scan also on the same tile made of
-     tandems and homopolymers (timed beside the random tile) and on every
-     kind of tests/scan_cases.py at its four (k, m), single record and
-     batch; every sweep ("lane" layout) of that tile's
+     4 Mbp tile at (k, m) = (31, 11), (63, 15), (15, 5), on the same
+     tile made of tandems and homopolymers (timed beside the random
+     tile), on a 1,024 x 1 kb read batch and on every kind of
+     tests/scan_cases.py at its four (k, m), single record and batch;
+     every sweep ("lane" layout) of that tile's
      and that batch's v1 resolves, each again with its tables in the
      "col" layout (col kernel == lane kernel); the sweep on the
      adversarial inputs of tests/sweep_cases.py (and one at the tile's
@@ -51,7 +51,7 @@ The line before the last is the kernel table, each kernel with its
 time, its plain version's time and its bound (the larger of the bytes
 it must move over the HBM rate and its 32-bit ALU operations over the
 card's scalar peak), the scans also with the batch's time and bound and
-the v1 scan with its time on the tile of repeats, the sweeps (sweep 1
+their time on the tile of repeats, the sweeps (sweep 1
 of the tile resolve) also with the sum over the resolve's five sweeps
 and their bounds and the batch's times; the last line is
 {"ok": true, "device": {...}}.
@@ -262,20 +262,36 @@ def check_scan(packed, k, m, P_rec, last_i) -> int:
     return err
 
 
-def phase_scan_cases(device) -> int:
-    """Phase 2, scan: the kernel against scan_plain on every kind of
-    tests/scan_cases.py at its four (k, m), single record and batch.
-    Returns the largest error."""
+def check_scan2(packed, k, m, P_rec) -> int:
+    from supersampler_tpu_torch.ops import fused as FU
+
+    err = max_abs_err(FU.scan2_kernel(packed, k, m, P_rec),
+                      FU.scan2_plain(packed, k, m, P_rec))
+    if err:
+        raise AssertionError(f"scan2 kernel != plain at (k, m) = ({k}, {m})"
+                             f", P_rec={P_rec}: max_abs_err {err}")
+    return err
+
+
+def phase_scan_cases(device, v2=False) -> int:
+    """Phase 2, scan (v2: the v2 scan): the kernel against its plain
+    version on every kind of tests/scan_cases.py at its four (k, m),
+    single record and batch. Returns the largest error."""
     sc = load_tests_module("scan_cases")
     worst = 0
     for kind in sc.KINDS:
         for k, m in sc.KM:
             for codes, P_rec, lengths in sc.flat_inputs(
                     sc.scan_case(kind, k, m)):
-                worst = max(worst, check_scan(
-                    pack_codes(codes, device), k, m, P_rec,
-                    torch.from_numpy(lengths - (k + 1)).to(device)))
-    log(f"  scan kernel == plain on tests/scan_cases.py's "
+                packed = pack_codes(codes, device)
+                if v2:
+                    err = check_scan2(packed, k, m, P_rec)
+                else:
+                    li = torch.from_numpy(lengths - (k + 1)).to(device)
+                    err = check_scan(packed, k, m, P_rec, li)
+                worst = max(worst, err)
+    log(f"  {'scan2' if v2 else 'scan'} kernel == plain on "
+        f"tests/scan_cases.py's "
         f"{len(sc.KINDS)} kinds ({', '.join(sc.KINDS)}) at (k, m) = "
         f"{', '.join(map(str, sc.KM))}, single record and batch: "
         f"bit-equal (max_abs_err {worst})")
@@ -300,17 +316,17 @@ def bound(nbytes: int, ops: int) -> dict:
             "bound_by": "bytes" if tb >= to else "operations"}
 
 
-def scan_bound(P: int, n_rec: int, k: int, m: int, v2: bool) -> dict:
+def scan_bound(P: int, n_rec: int, v2: bool) -> dict:
     """Read the packed codes (and v1's bounds), write seven int32 tables,
     v1's sync bytes or v2's first-sync words, and the records' init;
-    per position one hash and one sync compare, and v2's W - 1 fold
-    steps or v1's window-minimum steps (a prefix, a suffix and three
-    window joins)."""
-    W = k - m + 1
+    per position one hash, five window-minimum steps (a prefix, a suffix
+    and three window joins) and one sync compare. Both scans compute the
+    same tables, so they count the same operations. At (31, 11) both are
+    bound by their bytes, so the count leaves their bounds as they were
+    when the v2 scan's count grew with W."""
     out = 28 * P + (4 * (P // 256) if v2 else P) + 16 * n_rec
     nbytes = P // 4 + (0 if v2 else 4 * n_rec) + out
-    steps = W - 1 if v2 else 5
-    return bound(nbytes, P * (OPS_HASH + OPS_FOLD * steps + 3))
+    return bound(nbytes, P * (OPS_HASH + OPS_FOLD * 5 + 3))
 
 
 def sweep_bound(se, st0, xs, capl: int) -> dict:
@@ -364,7 +380,7 @@ def phase_kernels(rng, device, tile_p=TILE_P, tile_l=TILE_L,
             f"(k, m) = ({k}, {m}): bit-equal (max_abs_err {err})")
     last_i = torch.tensor([tile_l - K - 1], dtype=torch.int32,
                           device=device)
-    res["scan"].update(scan_bound(tile_p, 1, K, M, False))
+    res["scan"].update(scan_bound(tile_p, 1, False))
     if timing:
         res["scan"]["ms"], res["scan"]["plain_ms"] = time_pair(
             lambda: scan_kernel(packed, K, M, tile_p, last_i),
@@ -428,7 +444,7 @@ def phase_kernels(rng, device, tile_p=TILE_P, tile_l=TILE_L,
     log(f"  the {chk.n} tile sweeps and the {bchk.n} batch sweeps again "
         "with their tables in the col layout: col kernel == lane kernel")
     res["scan"]["batch_bound_ms"] = scan_bound(
-        n_reads * P_rec, n_reads, K, M, False)["bound_ms"]
+        n_reads * P_rec, n_reads, False)["bound_ms"]
     if timing:
         li = lengths - (K + 1)
         res["scan"]["batch_ms"], res["scan"]["batch_plain_ms"] = time_pair(
@@ -558,8 +574,9 @@ def phase_walk(rng, device, tile_p=TILE_P, timing=True):
 
 def phase_fused(rng, device, tile_p=TILE_P, tile_l=TILE_L, n_reads=1024,
                 timing=True):
-    """Phase 2, v2: the v2 scan against scan2_plain at the tile (three
-    (k, m)) and on the read batch; every "col" sweep of fused_single /
+    """Phase 2, v2: the v2 scan against scan2_plain at the tile and at
+    the tile of tandems and homopolymers (three (k, m) each, both timed)
+    and on the read batch; every "col" sweep of fused_single /
     fused_batch against sweep_plain; the v2 fetch arrays against v1's at
     the tile, on the tile with a 3 kb homopolymer (passes 2..4 run), at
     s = 1 and on the batch. Returns {"scan2": {max_abs_err, bound, times},
@@ -571,12 +588,8 @@ def phase_fused(rng, device, tile_p=TILE_P, tile_l=TILE_L, n_reads=1024,
 
     res = {"scan2": {"max_abs_err": 0}, "sweep_col_v2": {"max_abs_err": 0}}
 
-    def check_scan2(packed, k, m, P_rec, what):
-        err = max_abs_err(FU.scan2_kernel(packed, k, m, P_rec),
-                          FU.scan2_plain(packed, k, m, P_rec))
-        if err:
-            raise AssertionError(f"scan2 kernel != plain at (k, m) = "
-                                 f"({k}, {m}) on {what}: max_abs_err {err}")
+    def check(packed, k, m, P_rec, what):
+        err = check_scan2(packed, k, m, P_rec)
         log(f"  scan2 kernel == plain on {what} at (k, m) = ({k}, {m}): "
             f"bit-equal (max_abs_err {err})")
 
@@ -598,13 +611,21 @@ def phase_fused(rng, device, tile_p=TILE_P, tile_l=TILE_L, n_reads=1024,
     codes[:tile_l] = torch.from_numpy(
         rng.integers(0, 4, tile_l, dtype=np.uint8))
     packed = pack_2bit(codes).to(device)
+    rep = np.zeros(tile_p, np.uint8)
+    rep[:tile_l] = load_tests_module("scan_cases").tile_codes(
+        int(rng.integers(1 << 31)), tile_l)
+    rpacked = pack_codes(rep, device)
     for k, m in ((31, 11), (63, 15), (15, 5)):
-        check_scan2(packed, k, m, tile_p, f"the {tile_p}-position tile")
-    res["scan2"].update(scan_bound(tile_p, 1, K, M, True))
+        check(packed, k, m, tile_p, f"the {tile_p}-position tile")
+        check(rpacked, k, m, tile_p, f"the {tile_p}-position tile of "
+              "tandems and homopolymers")
+    res["scan2"].update(scan_bound(tile_p, 1, True))
     if timing:
         res["scan2"]["ms"], res["scan2"]["plain_ms"] = time_pair(
             lambda: FU.scan2_kernel(packed, K, M, tile_p),
             lambda: FU.scan2_plain(packed, K, M, tile_p))
+        res["scan2"]["repeats_ms"] = cuda_ms(
+            lambda: FU.scan2_kernel(rpacked, K, M, tile_p), 20)
 
     halo = torch.zeros(32, dtype=torch.uint8, device=device)
     for s, cap, what, mut in (
@@ -641,14 +662,14 @@ def phase_fused(rng, device, tile_p=TILE_P, tile_l=TILE_L, n_reads=1024,
     bpacked = pack_2bit(torch.from_numpy(rc.reshape(-1))).to(device)
     lengths = torch.from_numpy(lens).to(device)
     for k, m in ((31, 11), (63, 15), (15, 5)):
-        check_scan2(bpacked, k, m, P_rec, f"the {n_reads} x 1 kb batch")
+        check(bpacked, k, m, P_rec, f"the {n_reads} x 1 kb batch")
     bpk = bpacked.view(n_reads, -1)
     resolve_both(f"{n_reads} x 1 kb batch", lambda sw: FU.fused_batch(
         bpk, K, M, P_rec, 1 << 14, lengths, *thr_w, sweep=sw),
         lambda: F.resolve_field_batched(F.scan_field_batched(
             bpk, K, M, P_rec, lengths), K, M, 1 << 14, P_rec, *thr_w))
     res["scan2"]["batch_bound_ms"] = scan_bound(
-        n_reads * P_rec, n_reads, K, M, True)["bound_ms"]
+        n_reads * P_rec, n_reads, True)["bound_ms"]
     if timing:
         res["scan2"]["batch_ms"], res["scan2"]["batch_plain_ms"] = time_pair(
             lambda: FU.scan2_kernel(bpacked, K, M, P_rec),
@@ -1039,6 +1060,8 @@ def main(argv=None) -> int:
     edge_err = phase_sweep_edges("cuda")
     kt["walk"] = phase_walk(rng, "cuda")
     kt.update(phase_fused(rng, "cuda"))
+    kt["scan2"]["max_abs_err"] = max(kt["scan2"]["max_abs_err"],
+                                     phase_scan_cases("cuda", v2=True))
     kt["sweep"]["max_abs_err"] = max(kt["sweep"]["max_abs_err"], edge_err)
     kt["sweep_col"]["max_abs_err"] = max(
         kt["sweep_col"]["max_abs_err"], edge_err,
@@ -1061,9 +1084,10 @@ def main(argv=None) -> int:
             f"{s1[pre + 'bound_ms']:.4f} ms), scan2 {s2[pre + 'ms']:.4f} ms "
             f"(plain {s2[pre + 'plain_ms']:.4f} ms, bound "
             f"{s2[pre + 'bound_ms']:.4f} ms) [{gpu}]")
-    log(f"  scan at the tile of tandems and homopolymers: "
-        f"{kt['scan']['repeats_ms']:.4f} ms (random tile "
-        f"{kt['scan']['ms']:.4f} ms) [{gpu}]")
+    for name in ("scan", "scan2"):
+        log(f"  {name} at the tile of tandems and homopolymers: "
+            f"{kt[name]['repeats_ms']:.4f} ms (random tile "
+            f"{kt[name]['ms']:.4f} ms) [{gpu}]")
     for name, key in (("tile", "tile"), ("1024 x 1 kb batch", "reads")):
         sw = kt["sweeps_" + key]
         bounds = ", ".join(f"{b['bound_ms']:.4f}" for b in sw["bounds"])

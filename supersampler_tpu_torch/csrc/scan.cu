@@ -8,9 +8,8 @@
 // spsp_scan2 replaces the v2 TPU kernel supersampler_tpu/ops/fused.py
 // _scan2_kernel (launched by _scan2): the same tables in the sweep's
 // column layout, each lane's first sync column and the records' window-0
-// elections. Both share the m-mer staging below; spsp_scan2 runs the
-// per-position election fold and sync lookback (elect, strict_min),
-// spsp_scan the window minima (window_minima, elect_min).
+// elections. Both share the m-mer staging, the window minima and the
+// election from them below (stage_mmers, window_minima, elect_min).
 //
 // What it computes, per position j of a flat batch of records laid
 // back to back (record r owns [r*P_rec, (r+1)*P_rec)):
@@ -56,17 +55,26 @@
 // spsp_scan2 writes the column layout, entry [r, l] at r * n_lanes + l
 // (the counterpart of the TPU's (tiles, 256, 128) blocks without their
 // half-major lane order), so that a warp of the sweep reads one column
-// of 32 lanes as contiguous words. One thread per column would then
-// write one 4-byte word per 32-byte sector, so a block covers kLanes = 8
-// lanes (2,048 positions): it stages 2,048 + 2W m-mers once (about 1.06
-// hashes per position), keeps each thread's 8 x 7 values in registers
-// and sends one table at a time through a padded (256 x 8) shared tile,
-// from which each warp writes 4 rows of 8 consecutive lanes. A row's 32
-// bytes fill one sector only when n_lanes is a multiple of 8 (the 4 Mbp
-// tile has 16,386 lanes: two sectors per row there). Each lane's first
-// sync comes from a __ballot_sync per warp and a min over the 8 warps in
+// of 32 lanes as contiguous words. Its blocks of 512 threads cover
+// kLanes = 8 lanes (2,048 positions) each, with the stage, the window
+// minima, the elections and the sync lookback of spsp_scan: no fold and
+// no lookback a position. The 2,048 + 2W m-mers take about 80 KB of
+// stage and minima, so two blocks fit an SM (32 warps); each thread keeps
+// its 4 positions' 28 values in registers until the minima are read, and
+// an output tile (68 KB) is then laid over them. On the H100 a 32-byte
+// sector written in part by two blocks costs about as much as two
+// written whole (chip_scan_probe.py), and a block's 8 lanes of a row fill
+// one sector only where the row starts on one: always where n_lanes is a
+// multiple of 8 (the read batches), in one row of four at the 4 Mbp tile
+// (16,386 lanes). So the blocks run in clusters of kCluster = 8: for each
+// row, a block's tile holds the sector that starts among its lanes, and
+// the next block of the cluster stores the lanes it lacks there through
+// distributed shared memory, 16 bytes at a time; only the cluster's two
+// ends write part of a sector. Each lane's first sync comes from a
+// __ballot_sync per warp and a min over the lane's 8 warp-sized runs in
 // shared memory: no atomics.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -75,8 +83,15 @@ namespace {
 constexpr int kT = 256;      // threads per block; positions per lane
 constexpr int kScanT = 1024; // positions per scan block
 constexpr int kLanes = 8;    // lanes per scan2 block
-constexpr int kPad = kLanes + 1;  // scan2 tile row pitch (no bank clash)
-constexpr int kWarps = kT / 32;
+constexpr int kT2 = 512;     // threads per scan2 block
+constexpr int kScan2Blocks = 1024 / kT2;  // resident per SM: 64 registers
+// scan2's output tile: per row, kLanes entries of 8 words (the 7 table
+// values and a pad) as two 16-byte halves, first halves then second
+// halves, and one 16-byte pad a row against bank conflicts
+constexpr int kRowQ = 2 * kLanes + 1;  // 16-byte words a tile row
+constexpr int kFsBytes = kLanes * kT / 32 * 4;  // scan2's warp_fs
+constexpr int kCluster = 8;  // scan2 blocks a cluster
+static_assert(kLanes * 4 == 32, "a block's row is one 32-byte sector");
 
 constexpr uint64_t kP1 = 11400714785074694791ull;
 constexpr uint64_t kP2 = 14029467366897019727ull;
@@ -108,36 +123,6 @@ struct Election {
   int32_t pos;
   uint64_t hash;
 };
-
-// regular_minimizer_pos over the window whose first m-mer sits at
-// shared index s (its m-mers are s .. s+k-m).
-__device__ __forceinline__ Election elect(const uint32_t* canon,
-                                          const uint8_t* rev,
-                                          const uint64_t* hash, int s,
-                                          int km) {
-  Election e;
-  e.mini = canon[s + km];
-  e.rev = rev[s + km];
-  e.pos = e.rev ? 0 : km;
-  e.hash = hash[s + km];
-  for (int i = 1; i <= km; ++i) {
-    const int off = km - i;
-    const uint32_t mm = canon[s + off];
-    const uint32_t lr = rev[s + off];
-    const uint64_t h = hash[s + off];
-    const bool replace = e.hash > h;
-    const bool same = (mm == e.mini) && !replace && (lr == e.rev);
-    const bool tie_take =
-        same && ((e.rev && e.pos > i) || (!e.rev && e.pos > off));
-    if (replace || tie_take) {
-      e.pos = replace ? off : (e.rev ? i : off);
-      e.mini = mm;
-      e.rev = lr;
-      e.hash = h;
-    }
-  }
-  return e;
-}
 
 // m-mers staged in shared memory: the m-mer starting at position x0 + i
 // has index i (canonical value, strand, XXHash64).
@@ -197,35 +182,6 @@ __device__ Stage stage_mmers(unsigned char* smem, const uint8_t* packed,
   return {s_hash, s_canon, s_rev};
 }
 
-// The table values of one position j, given o = j - (x0 + W): the m-mer
-// entering at j starts at j + W (index o + 2W); the election is that of
-// window j + 1 (first m-mer at index o + W + 1).
-struct Tables {
-  uint64_t h0;
-  uint32_t cv;
-  Election e;
-};
-
-__device__ __forceinline__ Tables position_tables(const Stage& st, int o,
-                                                  int W, int km) {
-  const int s_ent = o + 2 * W;
-  Tables v;
-  v.h0 = st.hash[s_ent];
-  v.cv = st.canon[s_ent] | (static_cast<uint32_t>(st.rev[s_ent]) << 30);
-  v.e = elect(st.canon, st.rev, st.hash, o + W + 1, km);
-  return v;
-}
-
-// h0 at shared index s strictly below every one of the 2W entering
-// hashes before it (field.py _sync_from_h0, fused.py:148-204).
-__device__ __forceinline__ bool strict_min(const uint64_t* hash, int s,
-                                           int w2) {
-  const uint64_t h0 = hash[s];
-  for (int d = 1; d <= w2; ++d)
-    if (!(h0 < hash[s - d])) return false;
-  return true;
-}
-
 // Record rec's window-0 election (the streaming machine's entry state),
 // written by the thread of the record's first position.
 __device__ __forceinline__ void write_init(int32_t* init, int64_t rec,
@@ -255,6 +211,14 @@ __host__ __device__ constexpr size_t align8(size_t n) {
 __host__ __device__ constexpr size_t scan_smem_bytes(int n_mm, int m) {
   return align8(stage_bytes(n_mm, m)) +
          static_cast<size_t>(n_mm) * 2 * (8 + 4);
+}
+
+// scan2: warp_fs, then the stage and the minima, over which the output
+// tile is laid once they are read.
+__host__ __device__ constexpr size_t scan2_smem_bytes(int n_mm, int m) {
+  return kFsBytes + (scan_smem_bytes(n_mm, m) > 16u * kT * kRowQ
+                         ? scan_smem_bytes(n_mm, m)
+                         : 16u * kT * kRowQ);
 }
 
 // Builds MinTabs at smem (after the stage). One thread per segment and
@@ -323,9 +287,10 @@ __device__ __forceinline__ WinMin window_min(const MinTabs& mt, int s,
           static_cast<int>((hs < hp ? ls : lp) >> 16)};
 }
 
-// regular_minimizer_pos (elect's fold) of the window whose first m-mer
-// sits at shared index s, from its minimum. Equal hashes are equal
-// canonical m-mers (XXHash64 is a bijection on 64-bit words), so the
+// regular_minimizer_pos (the reference's right-to-left election fold,
+// SubSampler.cpp:81-169) of the window whose first m-mer sits at shared
+// index s, from its minimum. Equal hashes are equal canonical m-mers
+// (XXHash64 is a bijection on 64-bit words), so the
 // fold's outcome depends only on where the minimal m-mer occurs, with
 // r1 its rightmost occurrence (window offsets 0 .. km):
 //   * r1 forward: the leftmost forward occurrence (the fold takes every
@@ -424,83 +389,151 @@ __global__ void scan_kernel(const uint8_t* __restrict__ packed, int64_t P,
   }
 }
 
-// The v2 scan: the same tables for kLanes lanes of 256 positions, written
-// in the column layout (entry [r, l] at r * n_lanes + l), plus each
-// lane's first sync column. Thread t owns column t of every lane of the
-// block: its values stay in registers until one table at a time passes
-// through a (256 x kLanes) shared tile, from which a warp writes four
-// rows of kLanes consecutive lanes (32 bytes each).
-__global__ void scan2_kernel(const uint8_t* __restrict__ packed, int64_t P,
-                             int64_t P_rec, int k, int m, int64_t n_lanes,
-                             int32_t* __restrict__ h_hi,
-                             int32_t* __restrict__ h_lo,
-                             int32_t* __restrict__ cv,
-                             int32_t* __restrict__ em,
-                             int32_t* __restrict__ ep,
-                             int32_t* __restrict__ eh_hi,
-                             int32_t* __restrict__ eh_lo,
-                             int32_t* __restrict__ fs,
-                             int32_t* __restrict__ init, int64_t n_rec) {
+// The v2 scan: the same tables for kLanes lanes of 256 positions,
+// written in the column layout (entry [r, l] at r * n_lanes + l), plus
+// each lane's first sync column. Thread t computes positions t + kT2 q
+// of the block (lane o / 256, row o % 256) from the window minima as
+// scan_kernel does and keeps their values in registers. Once every block
+// of the cluster has read its minima, the values pass through a shared
+// tile laid over the stage: its row r holds the 8 lanes of the 32-byte
+// sector that starts among the block's lanes, a .. a + 7 with
+// a = sector_lane(r), the last a of them stored there (16 bytes at a
+// time) by the next block of the cluster. A warp then writes 32 / kLanes
+// whole sectors of a table, with streaming stores (nothing reads them
+// back here). Only the cluster's ends write part of a sector: its last
+// block lanes a .. 7, its first block lanes 0 .. a - 1, through the tile
+// again.
+__global__ void __cluster_dims__(kCluster, 1, 1)
+    __launch_bounds__(kT2, kScan2Blocks)
+    scan2_kernel(const uint8_t* __restrict__ packed, int64_t P,
+                 int64_t P_rec, int k, int m, int64_t n_lanes,
+                 int32_t* __restrict__ h_hi, int32_t* __restrict__ h_lo,
+                 int32_t* __restrict__ cv, int32_t* __restrict__ em,
+                 int32_t* __restrict__ ep, int32_t* __restrict__ eh_hi,
+                 int32_t* __restrict__ eh_lo, int32_t* __restrict__ fs,
+                 int32_t* __restrict__ init, int64_t n_rec) {
   extern __shared__ __align__(16) unsigned char smem[];
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
   const int W = k - m + 1;
-  const int km = k - m;
+  // blocks past the last lane (the grid is a whole number of clusters)
+  // compute wrapped positions and store nothing
   const int64_t l0 = static_cast<int64_t>(blockIdx.x) * kLanes;
   const int64_t j0 = l0 * kT;
   const int n_mm = kLanes * kT + 2 * W;
-  const Stage st = stage_mmers(smem, packed, P, j0 - W, n_mm, m);
-  int32_t* tile = reinterpret_cast<int32_t*>(
-      smem + ((stage_bytes(n_mm, m) + 15) & ~static_cast<size_t>(15)));
-  int32_t* warp_fs = tile + kT * kPad;  // [kLanes][kWarps]
+  // warp_fs[o / 32]: the first sync among positions of warp-sized run
+  // o / 32 (kT / 32 runs a lane), kT if none
+  int32_t* warp_fs = reinterpret_cast<int32_t*>(smem);
+  unsigned char* work = smem + kFsBytes;
+  const Stage st = stage_mmers(work, packed, P, j0 - W, n_mm, m);
+  const MinTabs mt =
+      window_minima(work + align8(stage_bytes(n_mm, m)), st.hash, n_mm, W);
 
   const int t = threadIdx.x;
   const int64_t left = n_lanes - l0;
   const int nl = left < kLanes ? static_cast<int>(left) : kLanes;
-  uint32_t v[7][kLanes] = {};
+  constexpr int kQ = kLanes * kT / kT2;
+  uint32_t v[7][kQ];  // set for the block's lanes, read only for them
+  int64_t rec = (j0 + t) / P_rec;
+  int64_t jloc = j0 + t - rec * P_rec;
 #pragma unroll
-  for (int li = 0; li < kLanes; ++li) {
-    if (li >= nl) continue;  // uniform across the block
-    const int o = li * kT + t;
-    const Tables x = position_tables(st, o, W, km);
-    v[0][li] = static_cast<uint32_t>(x.h0 >> 32);
-    v[1][li] = static_cast<uint32_t>(x.h0);
-    v[2][li] = x.cv;
-    v[3][li] = x.e.mini | (x.e.rev << 30);
-    v[4][li] = static_cast<uint32_t>(x.e.pos);
-    v[5][li] = static_cast<uint32_t>(x.e.hash >> 32);
-    v[6][li] = static_cast<uint32_t>(x.e.hash);
-    const int64_t j = j0 + o;
-    const int64_t rec = j / P_rec;
-    const int64_t jloc = j - rec * P_rec;
-    // v2 sync: masked by the record's first 2W positions only; the
-    // caller drops a first sync past last_i (fused.py:515)
-    const bool sy = jloc >= 2 * W && strict_min(st.hash, o + 2 * W, 2 * W);
-    const unsigned ballot = __ballot_sync(0xffffffffu, sy);
-    if ((t & 31) == 0)
-      warp_fs[li * kWarps + (t >> 5)] =
-          ballot ? (t & ~31) + __ffs(ballot) - 1 : kT;
-    if (jloc == 0)
-      write_init(init, rec, n_rec,
-                 elect(st.canon, st.rev, st.hash, o + W, km));
+  for (int q = 0; q < kQ; ++q) {
+    const int o = q * kT2 + t;
+    if (o / kT < nl) {  // uniform across each warp
+      const uint64_t h0 = st.hash[o + 2 * W];
+      v[0][q] = static_cast<uint32_t>(h0 >> 32);
+      v[1][q] = static_cast<uint32_t>(h0);
+      v[2][q] = st.canon[o + 2 * W] |
+                (static_cast<uint32_t>(st.rev[o + 2 * W]) << 30);
+      const Election e = elect_min(st, mt, o + W + 1, W);
+      v[3][q] = e.mini | (e.rev << 30);
+      v[4][q] = static_cast<uint32_t>(e.pos);
+      v[5][q] = static_cast<uint32_t>(e.hash >> 32);
+      v[6][q] = static_cast<uint32_t>(e.hash);
+      // v2 sync: masked by the record's first 2W positions only; the
+      // caller drops a first sync past last_i (fused.py:515)
+      const uint64_t look =
+          min_u64(min_u64(mt.suf_h[o], mt.pre_h[o + W - 1]),
+                  min_u64(mt.suf_h[o + W], mt.pre_h[o + 2 * W - 1]));
+      const unsigned ballot =
+          __ballot_sync(0xffffffffu, jloc >= 2 * W && h0 < look);
+      if ((t & 31) == 0)
+        warp_fs[o / 32] = ballot ? o % kT + __ffs(ballot) - 1 : kT;
+      if (jloc == 0)
+        write_init(init, rec, n_rec, elect_min(st, mt, o + W, W));
+    }
+    jloc += kT2;
+    while (jloc >= P_rec) {
+      jloc -= P_rec;
+      ++rec;
+    }
   }
-  __syncthreads();
+  cluster.sync();  // every block of the cluster is done with its minima
   if (t < nl) {
     int f = kT;
-    for (int w = 0; w < kWarps; ++w) f = min(f, warp_fs[t * kWarps + w]);
+    for (int w = 0; w < kT / 32; ++w) f = min(f, warp_fs[t * (kT / 32) + w]);
     fs[l0 + t] = f;
   }
   int32_t* const outs[7] = {h_hi, h_lo, cv, em, ep, eh_hi, eh_lo};
+  // sector_lane(r): the lane (from l0) where a sector of row r starts
+  const int e0 = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(h_hi) / 4 + l0) & (kLanes - 1));
+  const int n8 = static_cast<int>(n_lanes & (kLanes - 1));
+  const auto sector_lane = [e0, n8](int r) {
+    return -(e0 + r * n8) & (kLanes - 1);
+  };
+  const unsigned rank = cluster.block_rank();
+  uint4* tile = reinterpret_cast<uint4*>(work);  // [kT][kRowQ]
+  // entry c of row r: halves tile[r * kRowQ + c], [r * kRowQ + kLanes + c]
 #pragma unroll
-  for (int q = 0; q < 7; ++q) {
+  for (int q = 0; q < kQ; ++q) {
+    const int o = q * kT2 + t;
+    const int li = o / kT, r = o % kT;
+    const int a = sector_lane(r);
+    if (li >= nl || (li < a && rank == 0)) continue;
+    uint4* e = li >= a ? &tile[r * kRowQ + li - a]  // into the previous
+                       : cluster.map_shared_rank(  // block's sector
+                             &tile[r * kRowQ + kLanes - a + li], rank - 1);
+    e[0] = make_uint4(v[0][q], v[1][q], v[2][q], v[3][q]);
+    e[kLanes] = make_uint4(v[4][q], v[5][q], v[6][q], 0u);
+  }
+  cluster.sync();
+  const bool next = rank + 1 < kCluster;
 #pragma unroll
-    for (int li = 0; li < kLanes; ++li)
-      tile[t * kPad + li] = static_cast<int32_t>(v[q][li]);
-    __syncthreads();
-    for (int f = t; f < kT * kLanes; f += kT) {
-      const int r = f / kLanes;
-      const int li = f % kLanes;
-      if (li < nl) outs[q][r * n_lanes + l0 + li] = tile[r * kPad + li];
+  for (int q = 0; q < kQ; ++q) {
+    const int f = q * kT2 + t;  // row f / kLanes, sector lane f % kLanes
+    const int r = f / kLanes, c = f % kLanes;
+    const int li = sector_lane(r) + c;
+    if (li < kLanes ? li < nl : next && l0 + li < n_lanes) {
+      const uint4 x0 = tile[r * kRowQ + c], x1 = tile[r * kRowQ + kLanes + c];
+      const uint32_t x[7] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z};
+#pragma unroll
+      for (int i = 0; i < 7; ++i)
+        __stcs(&outs[i][r * n_lanes + l0 + li], static_cast<int32_t>(x[i]));
     }
-    __syncthreads();
+  }
+  if (rank > 0) return;
+  // the cluster's first block: its lanes 0 .. a - 1, part of a sector
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int o = q * kT2 + t;
+    const int li = o / kT, r = o % kT;
+    if (li >= nl || li >= sector_lane(r)) continue;
+    tile[r * kRowQ + li] = make_uint4(v[0][q], v[1][q], v[2][q], v[3][q]);
+    tile[r * kRowQ + kLanes + li] = make_uint4(v[4][q], v[5][q], v[6][q], 0u);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int f = q * kT2 + t;
+    const int r = f / kLanes, c = f % kLanes;
+    if (c >= nl || c >= sector_lane(r)) continue;
+    const uint4 x0 = tile[r * kRowQ + c], x1 = tile[r * kRowQ + kLanes + c];
+    const uint32_t x[7] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z};
+#pragma unroll
+    for (int i = 0; i < 7; ++i)
+      __stcs(&outs[i][r * n_lanes + l0 + c], static_cast<int32_t>(x[i]));
   }
 }
 
@@ -542,11 +575,16 @@ extern "C" int spsp_scan2(const uint8_t* packed, int64_t P, int64_t P_rec,
   if (P <= 0) return 0;
   const int W = k - m + 1;
   const int64_t n_lanes = P / kT;
-  const size_t smem =
-      ((stage_bytes(kLanes * kT + 2 * W, m) + 15) & ~static_cast<size_t>(15))
-      + sizeof(int32_t) * (kT * kPad + kLanes * kWarps);
-  const int64_t blocks = (n_lanes + kLanes - 1) / kLanes;
-  scan2_kernel<<<static_cast<unsigned>(blocks), kT, smem,
+  // 79,688 B at W = 21 (k = 31, m = 11), at most 82,872 B (W = 63 at
+  // k = 63, m = 1): over the 48 KB default, so the limit is raised
+  const size_t smem = scan2_smem_bytes(kLanes * kT + 2 * W, m);
+  const cudaError_t err = cudaFuncSetAttribute(
+      scan2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t blocks = (n_lanes + kLanes * kCluster - 1) /
+                         (kLanes * kCluster) * kCluster;
+  scan2_kernel<<<static_cast<unsigned>(blocks), kT2, smem,
                  static_cast<cudaStream_t>(stream)>>>(
       packed, P, P_rec, k, m, n_lanes, h_hi, h_lo, cv, em, ep, eh_hi, eh_lo,
       fs, init, P / P_rec);

@@ -91,6 +91,20 @@ def test_scan_kernel_equals_plain_on_cases(cuda, kind, k, m):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("k,m", _SCAN_CASES.KM)
+@pytest.mark.parametrize("kind", _SCAN_CASES.KINDS)
+def test_scan2_kernel_equals_plain_on_cases(cuda, kind, k, m):
+    """The v2 scan kernel == scan2_plain on tests/scan_cases.py's
+    repeats, single record and batch (ties in the window minimum and in
+    the sync lookback)."""
+    d = _SCAN_CASES.scan_case(kind, k, m)
+    for codes, P_rec, _lengths in _SCAN_CASES.flat_inputs(d):
+        packed = pack_2bit(torch.from_numpy(codes)).to(cuda)
+        for a, b in zip(FU.scan2_kernel(packed, k, m, P_rec),
+                        FU.scan2_plain(packed, k, m, P_rec), strict=True):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("layout", ["lane", "col"])
 @pytest.mark.parametrize("case_id", [c[0] for c in _SWEEP_CASES.CASES])
 def test_sweep_kernel_equals_plain_on_edge_cases(cuda, case_id, layout):

@@ -33,6 +33,7 @@ from supersampler_tpu.ops.minimizer import pack_2bit_np
 from supersampler_tpu_torch.ops import fused as FU
 from supersampler_tpu_torch.ops.scan_kernel import scan_plain
 from supersampler_tpu_torch.sketch import TorchSubsampler
+from tests import scan_cases as SC
 
 K, M = 31, 11
 _C = 512                       # JAX row width (two 256-position blocks)
@@ -77,17 +78,8 @@ def _to_cols(a: np.ndarray, n: int) -> np.ndarray:
     return blk[:, :n].view(np.int32)
 
 
-@pytest.mark.parametrize("k,m", [(31, 11), (21, 7)])
-@pytest.mark.parametrize("n_rec,P_rec", [
-    (1, 5 * _C),       # single, one live row tile
-    (1, 70 * _C),      # single, two live row tiles
-    (8, 2 * _C),       # batch, one row tile
-    (2, 96 * _C),      # batch, three row tiles; records span tiles
-])
-def test_scan2_plain_matches_jax_scan2(k, m, n_rec, P_rec):
-    rng = np.random.default_rng(1000 * k + n_rec)
-    codes = rng.integers(0, 4, n_rec * P_rec, dtype=np.uint8)
-    codes[100:700] = 2                     # a syncless run in record 0
+def _check_scan2(codes, k, m, P_rec, n_rec):
+    """scan2_plain == JAX _scan2 on flat codes of n_rec records."""
     tT, aux = _jax_scan2(codes, k, m, 0 if n_rec == 1 else P_rec // _C)
     got = FU.scan2_plain(torch.from_numpy(pack_2bit_np(codes)), k, m, P_rec)
     n = codes.size // 256
@@ -99,6 +91,30 @@ def test_scan2_plain_matches_jax_scan2(k, m, n_rec, P_rec):
     heads = np.arange(n_rec) * (P_rec // _C)
     np.testing.assert_array_equal(got[8].numpy(),
                                   aux[heads, 4:8].T.view(np.int32))
+
+
+@pytest.mark.parametrize("k,m", [(31, 11), (21, 7)])
+@pytest.mark.parametrize("n_rec,P_rec", [
+    (1, 5 * _C),       # single, one live row tile
+    (1, 70 * _C),      # single, two live row tiles
+    (8, 2 * _C),       # batch, one row tile
+    (2, 96 * _C),      # batch, three row tiles; records span tiles
+])
+def test_scan2_plain_matches_jax_scan2(k, m, n_rec, P_rec):
+    rng = np.random.default_rng(1000 * k + n_rec)
+    codes = rng.integers(0, 4, n_rec * P_rec, dtype=np.uint8)
+    codes[100:700] = 2                     # a syncless run in record 0
+    _check_scan2(codes, k, m, P_rec, n_rec)
+
+
+@pytest.mark.parametrize("k,m", [(31, 11), (63, 15)])
+@pytest.mark.parametrize("kind", SC.KINDS)
+def test_scan2_plain_matches_jax_scan2_on_cases(kind, k, m):
+    """tests/scan_cases.py's repeats (ties in every window's minimum,
+    sync candidates that tie), single record and batch."""
+    d = SC.scan_case(kind, k, m)
+    for codes, P_rec, lengths in SC.flat_inputs(d):
+        _check_scan2(codes, k, m, P_rec, len(lengths))
 
 
 def test_scan2_plain_is_scan_plain_in_columns():
