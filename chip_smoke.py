@@ -45,7 +45,22 @@ Phases, each printing its result; any failure exits non-zero:
      and the bench corpus run again on v2 (SPSP_FUSED=1): same bytes,
      fallbacks on the single and batch routes, v1 and v2 walls side by
      side. Each of these paths runs with the launch counters reset
-     before and read after.
+     before and read after;
+  5. comparator: the comparator CLI on the family goldens
+     (gfam_fam0-3.gz), all-vs-all and in query mode, on the device and
+     the numpy engine, in RAM and at --chunk-bytes 16384: CSVs
+     byte-equal to tests/golden/allvsall_* and query_*, torch._int_mm
+     launched on the device engine only; then 64 genomes of 2 Mbp (8
+     families of 8, 0.5-5 % point substitutions) sketched by the
+     sub_sampler CLI (-f, s = 100) and compared all-vs-all and 8-vs-64
+     on both engines, chunked at 1 MiB, through score_matrix_device at
+     4,096 groups a step (card == CPU) and through the comparator CLI:
+     every score_A, nb_kmer_seen_infile and CSV agrees; sort_csv and
+     kmer_dump on that corpus; the comparators' walls, and the
+     presence product's time (CUDA events) beside its bound (block
+     bytes over the HBM rate against int8 operations over the dense
+     int8 tensor-core rate). The product is a library call
+     (cuBLASLt), not a kernel of the table.
 After the phases no supersampler_tpu module may have been imported.
 The line before the last is the kernel table, each kernel with its
 time, its plain version's time and its bound (the larger of the bytes
@@ -89,6 +104,8 @@ _ACGT = np.frombuffer(b"ACGT", np.uint8)
 # stands in: a ceiling, so the bound stays a floor
 HBM_BPS = 3.35e12
 ALU_OPS = 67e12
+# dense int8 tensor-core peak (datasheet), the comparator product's rate
+INT8_OPS = 1979e12
 # 32-bit operations per unit of work, counted low from csrc/
 OPS_HASH = 40        # one XXHash64 of an m-mer (five 64-bit multiplies)
 OPS_FOLD = 8         # one step of the election fold or a window minimum
@@ -678,13 +695,23 @@ def phase_fused(rng, device, tile_p=TILE_P, tile_l=TILE_L, n_reads=1024,
 
 
 @contextmanager
-def fused_env():
-    """SPSP_FUSED=1 (the v2 path) inside the block."""
-    os.environ["SPSP_FUSED"] = "1"
+def env_vars(**values):
+    """The environment variables ``values`` set inside the block."""
+    old = {key: os.environ.get(key) for key in values}
+    os.environ.update(values)
     try:
         yield
     finally:
-        os.environ.pop("SPSP_FUSED", None)
+        for key, v in old.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+
+
+def fused_env():
+    """SPSP_FUSED=1 (the v2 path) inside the block."""
+    return env_vars(SPSP_FUSED="1")
 
 
 def phase_goldens(device, workdir, engine="field", v2=False) -> None:
@@ -808,9 +835,11 @@ def _wrappers() -> dict:
     from supersampler_tpu_torch.ops.fused import scan2_kernel
     from supersampler_tpu_torch.ops.scan_kernel import scan_kernel
     from supersampler_tpu_torch.ops.walker import walk_kernel
+    from supersampler_tpu_torch.parallel.compare_dist import presence_product
 
     return {"scan": scan_kernel, "scan2": scan2_kernel,
-            "sweep": sweep_kernel, "walk": walk_kernel}
+            "sweep": sweep_kernel, "walk": walk_kernel,
+            "int_mm": presence_product}
 
 
 def reset_launches() -> None:
@@ -1019,6 +1048,273 @@ def phase_bench_legacy(device, workdir, genome, bases, want_sha) -> dict:
     return counts
 
 
+def _run_cli(cli, argv, workdir) -> str:
+    """One in-process CLI call from workdir; returns its stdout."""
+    from contextlib import chdir
+
+    buf = io.StringIO()
+    with chdir(workdir), redirect_stdout(buf):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"{cli.__name__} {argv}: rc {rc}")
+    return buf.getvalue()
+
+
+def _same_bytes(a: str, b: str, what: str) -> None:
+    with open(a, "rb") as f, open(b, "rb") as g:
+        if f.read() != g.read():
+            raise AssertionError(f"{what}: {a} differs from {b}")
+
+
+def phase_compare_goldens(device, workdir) -> None:
+    """Phase 5a: the comparator CLI on the family goldens, all-vs-all
+    and query mode, both engines, in RAM and chunked: CSVs byte-equal
+    to tests/golden/allvsall_* and query_*."""
+    from supersampler_tpu_torch.cli import comparator as cli
+
+    gold = os.path.join(ROOT, "tests", "golden")
+    with open(os.path.join(gold, "meta.json")) as f:
+        cfg = json.load(f)["compare"]
+    d = os.path.join(workdir, "cmp_gold")
+    os.makedirs(d)
+    for name in cfg["files"]:
+        os.symlink(os.path.join(gold, name), os.path.join(d, name))
+    for fof, names in (("fof.txt", cfg["files"]),
+                       ("qfof.txt", cfg["query_files"]),
+                       ("bfof.txt", cfg["bank_files"])):
+        with open(os.path.join(d, fof), "w") as f:
+            f.write("\n".join(names) + "\n")
+    modes = (("allvsall", ["-f", "fof.txt"]),
+             ("query", ["-f", "bfof.txt", "-q", "qfof.txt", "-p",
+                        str(cfg["query_precision"]), "-m",
+                        str(cfg["query_min_threshold"])]))
+    for engine in ("device", "numpy"):
+        reset_launches()
+        t0 = time.perf_counter()
+        with env_vars(SPSP_COMPARE_ENGINE=engine, TORCH_DEVICE=str(device)):
+            for mode, argv in modes:
+                for chunk in ([], ["--chunk-bytes", "16384"]):
+                    _run_cli(cli, argv + chunk + ["-o", "r"], d)
+                    for kind in ("containment", "jaccard"):
+                        _same_bytes(os.path.join(d, f"r_{kind}.csv.gz"),
+                                    os.path.join(gold,
+                                                 f"{mode}_{kind}.csv.gz"),
+                                    f"{engine} engine, {mode} {chunk}")
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        if (counts["int_mm"] > 0) != (engine == "device"):
+            raise AssertionError(f"{engine} engine: int_mm launches "
+                                 f"{counts['int_mm']}")
+        log(f"  comparator CLI, {engine} engine: allvsall_* and query_* "
+            f"bytes equal, in RAM and at --chunk-bytes 16384 (4 runs "
+            f"{wall:.3f} s); launches {counts} [{gpu_line()}]")
+
+
+def family_corpus(rng, workdir, n_fam=8, per_fam=8, glen=2_000_000):
+    """n_fam random base genomes of glen bp, each with per_fam members
+    carrying 0.5-5 % point substitutions, one FASTA a member. Returns
+    the paths, family by family."""
+    paths = []
+    for fam in range(n_fam):
+        base = rng.integers(0, 4, glen, dtype=np.uint8)
+        for j in range(per_fam):
+            codes = base.copy()
+            hit = rng.random(glen) < rng.uniform(0.005, 0.05)
+            codes[hit] = (codes[hit] + rng.integers(
+                1, 4, int(hit.sum()), dtype=np.uint8)) % 4
+            paths.append(os.path.join(workdir, f"fam{fam}_{j}.fa"))
+            write_fasta(paths[-1], [codes], b"g")
+    return paths
+
+
+def phase_compare_real(rng, device, workdir, timing=True,
+                       **sizes) -> dict:
+    """Phase 5b: 64 genomes of 2 Mbp (8 families of 8) sketched by the
+    sub_sampler CLI (-f) at k=31, m=11, s=100, then compared all-vs-all
+    on both engines, 8-vs-64 in query mode on both, chunked (device
+    engine, 1 MiB chunks) and through score_matrix_device at 4,096
+    groups a step; every score_A, nb_kmer_seen_infile and CSV must
+    agree. Then sort_csv and kmer_dump on this corpus. The launch
+    counters are reset before and read after. Returns the counts."""
+    from supersampler_tpu_torch.cli import comparator as ccli
+    from supersampler_tpu_torch.cli import kmer_dump as kcli
+    from supersampler_tpu_torch.cli import sort_csv as scli
+    from supersampler_tpu_torch.cli import sub_sampler as scli_sketch
+    from supersampler_tpu_torch.compare.merge import (TorchComparator,
+                                                      pair_scores_numpy)
+    from supersampler_tpu_torch.parallel import compare_dist as CD
+
+    d = os.path.join(workdir, "cmp_real")
+    os.makedirs(d)
+    fastas = family_corpus(rng, d, **sizes)
+    with open(os.path.join(d, "genomes.txt"), "w") as f:
+        f.writelines(p + "\n" for p in fastas)
+    gpu = gpu_line()
+    reset_launches()
+    t0 = time.perf_counter()
+    with env_vars(TORCH_DEVICE=str(device)):
+        _run_cli(scli_sketch, ["-f", "genomes.txt", "-k", "31", "-m", "11",
+                               "-s", "100", "-p", "sk_"], d)
+    t_sketch = time.perf_counter() - t0
+    files = [os.path.join(d, "sk_" + os.path.basename(p)[:-3] + ".gz")
+             for p in fastas]
+    with open(os.path.join(d, "sketches.txt"), "w") as f:
+        f.writelines(p + "\n" for p in files)
+    queries = files[:: len(files) // 8]
+    with open(os.path.join(d, "queries.txt"), "w") as f:
+        f.writelines(p + "\n" for p in queries)
+
+    def compare(engine, query, chunk_bytes=None):
+        c = TorchComparator(engine=engine,
+                            device=device if engine == "device" else None,
+                            **({"precision": 3} if query else {}))
+        c.files_names = (queries if query else []) + files
+        qs = len(queries) if query else len(files)
+        t = time.perf_counter()
+        if chunk_bytes:
+            c.compare_sketches_chunked(qs, chunk_bytes=chunk_bytes)
+        else:
+            c.compare_sketches(qs)
+        return c, time.perf_counter() - t
+
+    def same(a, b, what):
+        if (a.score_A != b.score_A
+                or a.nb_kmer_seen_infile != b.nb_kmer_seen_infile
+                or a.containment_csv() != b.containment_csv()
+                or a.jaccard_csv() != b.jaccard_csv()):
+            raise AssertionError(f"{what}: results differ")
+
+    walls = {}
+    res = {}
+    for engine in ("device", "numpy"):
+        for query in (False, True):
+            res[engine, query], walls[engine, query] = compare(engine, query)
+    same(res["device", False], res["numpy", False], "all-vs-all engines")
+    same(res["device", True], res["numpy", True], "query-mode engines")
+    ref = res["numpy", False]
+    chunked, walls["chunked"] = compare("device", False, 1 << 20)
+    same(chunked, ref, "chunked (1 MiB) against in RAM")
+    # the in-RAM comparison's layers, each timed on the host's clock:
+    # decode, grouping (lexsort), then either engine's scoring
+    t = time.perf_counter()
+    mins, his, los, fids, nb_seen, _k, _m, _q = CD.decode_files(files)
+    walls["decode"] = time.perf_counter() - t
+    t = time.perf_counter()
+    gids, fids = CD.group_pairs(mins, his, los, fids)
+    walls["group"] = time.perf_counter() - t
+    n_groups = int(gids[-1]) + 1
+    t = time.perf_counter()
+    enumerated = pair_scores_numpy(gids, fids, len(files))
+    walls["enumerate"] = time.perf_counter() - t
+    if enumerated != ref.score_A:
+        raise AssertionError("the numpy engine's enumeration differs")
+    gids, fids = gids.astype(np.int32), fids.astype(np.int32)
+    t = time.perf_counter()
+    score = CD.score_matrix_device(gids, fids, n_groups, len(files),
+                                   device, chunk_groups=4096)
+    walls["steps"] = time.perf_counter() - t
+    t = time.perf_counter()
+    score_default = CD.score_matrix_device(gids, fids, n_groups,
+                                           len(files), device)
+    walls["steps_default"] = time.perf_counter() - t
+    if not np.array_equal(score, score_default):
+        raise AssertionError("score_matrix_device depends on its steps")
+    if (CD.scores_to_dict(score, len(files)) != ref.score_A
+            or list(np.diag(score)) != ref.nb_kmer_seen_infile
+            or nb_seen != ref.nb_kmer_seen_infile):
+        raise AssertionError("score_matrix_device at 4,096 groups a step "
+                             "differs")
+    with env_vars(SPSP_COMPARE_ENGINE="device", TORCH_DEVICE=str(device)):
+        t = time.perf_counter()
+        _run_cli(ccli, ["-f", "sketches.txt", "-o", "cli"], d)
+        walls["cli"] = time.perf_counter() - t
+    ref.write_outputs(os.path.join(d, "numpy"))
+    for kind in ("containment", "jaccard"):
+        _same_bytes(os.path.join(d, f"cli_{kind}.csv.gz"),
+                    os.path.join(d, f"numpy_{kind}.csv.gz"),
+                    "comparator CLI (device) against the numpy engine")
+    counts = read_launches()
+    if counts["int_mm"] <= 0 or counts["scan"] <= 0:
+        raise AssertionError(f"a kernel of the path never launched: "
+                             f"{counts}")
+    steps = -(-n_groups // 4096)
+    n, nq = len(files), len(queries)
+    log(f"  {n} x {sizes.get('glen', 2_000_000)} bp genomes sketched "
+        f"(-f, s=100) in {t_sketch:.3f} s; {sum(nb_seen)} pairs, "
+        f"{n_groups} groups; every engine agrees (all-vs-all and "
+        f"{nq}-vs-{n}: device == numpy; chunked at 1 MiB; {steps} steps "
+        f"of 4,096 groups; CLI bytes); launches {counts} [{gpu}]")
+    log(f"  comparator walls (compare_sketches, {n} files): device "
+        f"{walls['device', False]:.3f} s, numpy "
+        f"{walls['numpy', False]:.3f} s; {nq}-vs-{n}: device "
+        f"{walls['device', True]:.3f} s, numpy {walls['numpy', True]:.3f} "
+        f"s; chunked device {walls['chunked']:.3f} s; CLI (device) "
+        f"{walls['cli']:.3f} s; score_matrix_device {walls['steps']:.3f} "
+        f"s at 4,096 groups a step, {walls['steps_default']:.3f} s at "
+        f"the default [{gpu}]")
+    log(f"  comparator layers (all-vs-all, {n} files, host clock): decode "
+        f"{walls['decode']:.6f} s; grouping (filter, lexsort, group ids) "
+        f"{walls['group']:.6f} s; scoring: numpy pair enumeration "
+        f"{walls['enumerate']:.6f} s, score_matrix_device "
+        f"{walls['steps_default']:.6f} s at the default step [{gpu}]")
+
+    # the card's product against the CPU's, then timed
+    cpu_score = CD.score_matrix_device(gids, fids, n_groups, len(files),
+                                       "cpu", chunk_groups=4096)
+    if not np.array_equal(cpu_score, score):
+        raise AssertionError("score matrix: card != CPU")
+    log(f"  score matrix: card == CPU ({n} x {n}, max_abs_err 0)")
+    n_pad = CD.padded_files(len(files))
+    default_rows = CD.step_groups(n_groups, len(files))
+    for rows in sorted({4096, 32768, default_rows}) if timing else ():
+        # the block of the first step of that many groups
+        block = torch.zeros((n_pad, rows), dtype=torch.int8, device=device)
+        e = int(np.searchsorted(gids, rows))
+        block[torch.from_numpy(fids[:e]).to(device),
+              torch.from_numpy(gids[:e]).to(device)] = 1
+        nbytes = block.numel() + 4 * n_pad * n_pad
+        ops = 2 * n_pad * n_pad * rows
+        tb, to = nbytes / HBM_BPS, ops / INT8_OPS
+        ms = cuda_ms(lambda: CD.presence_product(block), 20)
+        log(f"  product torch._int_mm ({n_pad} x {rows} int8 block, "
+            f"S = B B^T, int32): {ms:.4f} ms (CUDA events), "
+            f"{ms * -(-n_groups // rows):.4f} ms over this corpus's "
+            f"{-(-n_groups // rows)} steps; bound "
+            f"{max(tb, to) * 1e3:.4f} ms by "
+            f"{'bytes' if tb >= to else 'operations'} ({nbytes} B over "
+            f"3.35 TB/s: {tb * 1e3:.4f} ms; {ops} int8 operations over "
+            f"1,979 TOP/s: {to * 1e3:.4f} ms)"
+            f"{' (the default step)' if rows == default_rows else ''} "
+            f"[{gpu}]")
+
+    # sort_csv on the all-vs-all jaccard matrix, to the reverse order
+    with open(os.path.join(d, "reversed.txt"), "w") as f:
+        f.writelines(p + "\n" for p in reversed(files))
+    out = _run_cli(scli, ["cli_jaccard.csv.gz", "sorted.csv",
+                          "reversed.txt"], d)
+    with gzip.open(os.path.join(d, "cli_jaccard.csv.gz"), "rt") as f:
+        before = [ln.split(",") for ln in f.read().splitlines()]
+    with open(os.path.join(d, "sorted.csv")) as f:
+        after = [ln.split(",") for ln in f.read().splitlines()]
+    # the matrix is symmetric: row i of the reversed one is row n - 1 - i
+    if (out.strip() != "The end" or after[0] != before[0][::-1]
+            or any(float(after[1 + i][j]) != float(
+                before[n - i][n - 1 - j]) for i in range(n)
+                for j in range(n))):
+        raise AssertionError("sort_csv: the reversed matrix differs")
+    # kmer_dump: one line a distinct pair of the sketch
+    _run_cli(kcli, [files[0], "kmers.txt"], d)
+    with open(os.path.join(d, "kmers.txt")) as f:
+        kmers = f.read().split()
+    if (len(kmers) != ref.nb_kmer_seen_infile[0]
+            or any(len(x) != 31 for x in kmers)):
+        raise AssertionError("kmer_dump: not one 31-mer a pair")
+    log(f"  sort_csv ({n} x {n} jaccard, reversed order) and kmer_dump "
+        f"({len(kmers)} k-mers == nb_kmer_seen_infile of "
+        f"{os.path.basename(files[0])}) agree")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1077,6 +1373,9 @@ def main(argv=None) -> int:
         phase_desert(rng, "cuda", tmp)
         c1, c2, *bench_genome = phase_bench(rng, tmp)
         c_legacy = phase_bench_legacy("cuda", tmp, *bench_genome)
+        log("[5] comparator on the card")
+        phase_compare_goldens("cuda", tmp)
+        phase_compare_real(rng, "cuda", tmp)
     for name, pre in (("tile", ""), ("1024 x 1 kb batch", "batch_")):
         s1, s2 = kt["scan"], kt["scan2"]
         log(f"  times at the {name}: scan {s1[pre + 'ms']:.4f} ms (plain "

@@ -1,11 +1,14 @@
 """Scalar constants and formatting of the SuperSampler data model.
 
 The port's copy of what it needs from supersampler_tpu/core/scalar.py:
-the XXHash64 primes and seed, the FHS threshold (80-bit long double,
-computed by the native library) and the reference's number formats.
+the XXHash64 primes and seed, the 2-bit nucleotide code, the FHS
+threshold (80-bit long double, computed by the native library) and the
+reference's number formats.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 MASK64 = (1 << 64) - 1
 
@@ -18,6 +21,23 @@ PRIME5 = 2870177450012600261
 
 #: The one hash seed used everywhere (reference utils.cpp:248).
 SEED = 1312
+
+# 2-bit nucleotide code: A=0, C=1, T=2, G=3 (reference utils.cpp:13-16).
+INT2NUC = "ACTG"
+
+# char -> code lookup over all 256 byte values, matching (c/2)%4
+# (reference utils.cpp:13-16 applies to arbitrary chars; only ACGT occur
+# after clean_dna).
+NUC2INT_LUT = np.array([(c // 2) % 4 for c in range(256)], dtype=np.uint8)
+
+
+def num2str(num: int, k: int) -> str:
+    """Unpack ``k`` nucleotides (reference utils.cpp:168-183)."""
+    out = []
+    for _ in range(k):
+        out.append(INT2NUC[num & 3])
+        num >>= 2
+    return "".join(reversed(out))
 
 
 def compute_threshold(k: int, m: int, sampling_rate: float) -> int:

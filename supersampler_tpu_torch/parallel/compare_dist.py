@@ -1,0 +1,172 @@
+"""All-vs-all comparison as a presence matmul on one device.
+
+Scoring model: let G be the number of distinct (minimizer, k-mer) pairs
+observed across all N sketches and Pm the (G, N) 0/1 presence matrix.
+Then S = Pm^T Pm has S[i,j] = |pairs shared by files i and j| (the
+reference's score_A, Comparator.cpp:269-287) and S[i,i] =
+nb_kmer_seen_infile[i]. Pair-rows are tiled into steps; each step's
+int8 presence block is built on the device from its (group, file)
+coordinates and multiplied into an integer total.
+
+Counterpart of supersampler_tpu/parallel/compare_dist.py without the
+mesh: the product, an XLA ``jnp.dot`` there, is ``torch._int_mm``
+here (cuBLASLt's int8 x int8 -> int32 path on CUDA), exact in integers.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Set
+
+import numpy as np
+import torch
+
+from supersampler_tpu_torch.compare.reader import decode_sketch_pairs
+
+
+def decode_files(files: List[str], query_size: int = None):
+    """Decode sketches into one set of pair arrays, in file order.
+
+    Returns (mins, his, los, file ids int64, per-file pair counts, k, m,
+    query minimizers). The last file's header gives k and m. The query
+    minimizers are the bucket minimizers of files [0, query_size), or
+    None when query_size covers every file (all-vs-all: no filter).
+    """
+    n = len(files)
+    if query_size is None:
+        query_size = n
+    mins_l, his_l, los_l, fids_l = [], [], [], []
+    nb_seen = [0] * n
+    query_minimizers: Set[int] = set()
+    k = m = 0
+    for f, path in enumerate(files):
+        mins, his, los, k, m, bucket_mins = decode_sketch_pairs(path)
+        nb_seen[f] = int(mins.size)
+        mins_l.append(mins)
+        his_l.append(his)
+        los_l.append(los)
+        fids_l.append(np.full(mins.size, f, dtype=np.int64))
+        if f < query_size:
+            query_minimizers |= bucket_mins
+    if not files:
+        mins_l = his_l = los_l = [np.zeros(0, np.uint64)]
+        fids_l = [np.zeros(0, np.int64)]
+    return (np.concatenate(mins_l), np.concatenate(his_l),
+            np.concatenate(los_l), np.concatenate(fids_l), nb_seen, k, m,
+            query_minimizers if query_size < n else None)
+
+
+def group_pairs(mins, his, los, fids,
+                query_minimizers: Optional[Set[int]] = None):
+    """Group decoded (minimizer, k-mer, file) pairs by (minimizer, k-mer).
+
+    Drops the pairs of buckets no query file holds when query_minimizers
+    is given (query mode), sorts by (minimizer, k-mer, file) and numbers
+    the groups. Returns (group ids int64, file ids), both in that order:
+    group ids are non-decreasing and file ids ascend within a group."""
+    if query_minimizers is not None:
+        qm = np.array(sorted(query_minimizers), dtype=np.uint64)
+        keep = np.isin(mins, qm)
+        mins, his, los, fids = mins[keep], his[keep], los[keep], fids[keep]
+    order = np.lexsort((fids, los, his, mins))
+    mins, his, los, fids = mins[order], his[order], los[order], fids[order]
+    new_group = np.ones(mins.size, dtype=bool)
+    if mins.size:
+        new_group[1:] = ((mins[1:] != mins[:-1]) | (his[1:] != his[:-1])
+                         | (los[1:] != los[:-1]))
+    return np.cumsum(new_group) - 1, fids
+
+
+def build_presence_chunks(files: List[str], query_size: int = None):
+    """Decode sketches and build group/file presence coordinates.
+
+    Returns (group_ids int32[], file_ids int32[], n_groups, per-file
+    pair counts, k, m). Groups = distinct (minimizer, kmer) pairs
+    (query-mode bucket filtering applied to scoring groups only).
+    """
+    mins, his, los, fids, nb_seen, k, m, qmins = decode_files(files,
+                                                             query_size)
+    gids, fids = group_pairs(mins, his, los, fids, qmins)
+    n_groups = int(gids[-1]) + 1 if gids.size else 0
+    return (gids.astype(np.int32), fids.astype(np.int32), n_groups,
+            nb_seen, k, m)
+
+
+def padded_files(n_files: int) -> int:
+    """File-axis width of a presence block: ``torch._int_mm`` on CUDA
+    needs more than 16 rows in its first operand and inner and column
+    sizes that are multiples of 8. Zero columns score zero."""
+    return max(24, -(-n_files // 8) * 8)
+
+
+def step_groups(n_groups: int, n_files: int,
+                chunk_groups: int = 1 << 18) -> int:
+    """Groups a step of score_matrix_device, chosen as the JAX package
+    chooses them: everything in one step when the block fits ~128 MB,
+    else chunk_groups; a power of two of at least 4,096."""
+    chunk_groups = min(chunk_groups, n_groups,
+                       max(4096, (128 << 20) // n_files))
+    return 1 << max(12, (chunk_groups - 1).bit_length())
+
+
+def presence_product(block: torch.Tensor) -> torch.Tensor:
+    """block @ block.T of one (n_pad, rows) int8 presence block, int32.
+
+    Both operands keep the group (inner) axis contiguous. On CUDA this
+    is one cuBLASLt launch, counted in ``presence_product.launches``;
+    on the CPU the same call, which has no shape rules there."""
+    if block.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no int8 product for device {block.device}")
+    out = torch._int_mm(block, block.T)
+    if block.device.type == "cuda":
+        presence_product.launches += 1
+    return out
+
+
+presence_product.launches = 0
+
+
+def score_matrix_device(gids: np.ndarray, fids: np.ndarray, n_groups: int,
+                        n_files: int, device,
+                        chunk_groups: int = 1 << 18) -> np.ndarray:
+    """Accumulate S = Pm^T Pm over group-steps on ``device``.
+
+    Each step copies its slice of the (group, file) coordinates to the
+    device (two int32 a pair; gids must be sorted, which the grouping
+    construction guarantees) and scatters ones into a zeroed
+    (n_pad, rows) int8 block there, so the host link carries 8 bytes a
+    pair rather than the dense block. Step sizes come from step_groups;
+    the result does not depend on them. Returns the N x N int64 score
+    matrix on the host."""
+    if n_groups == 0 or fids.size == 0:
+        return np.zeros((n_files, n_files), dtype=np.int64)
+    device = torch.device(device)
+    chunk_groups = step_groups(n_groups, n_files, chunk_groups)
+    n_steps = -(-n_groups // chunk_groups)
+    n_pad = padded_files(n_files)
+    # gids are sorted: one searchsorted gives every step's slice
+    edges = np.searchsorted(gids, np.arange(1, n_steps + 1) * chunk_groups)
+    block = torch.empty((n_pad, chunk_groups), dtype=torch.int8,
+                        device=device)
+    one = torch.ones((), dtype=torch.int8, device=device)
+    total = torch.zeros((n_pad, n_pad), dtype=torch.int64, device=device)
+    s = 0
+    for step in range(n_steps):
+        e = int(edges[step])
+        rows = torch.from_numpy(gids[s:e] - step * chunk_groups).to(device)
+        cols = torch.from_numpy(fids[s:e]).to(device)
+        block.zero_()
+        block.index_put_((cols, rows), one)
+        total += presence_product(block)
+        s = e
+    return total[:n_files, :n_files].cpu().numpy()
+
+
+def scores_to_dict(score: np.ndarray, query_size: int) -> Dict[int, int]:
+    """Upper-triangular score matrix -> the reference's score_A map
+    (vectorized; the N^2 Python loop dominated at large file counts)."""
+    n = score.shape[0]
+    iu, ju = np.triu_indices(n, k=1)
+    vals = score[iu, ju]
+    nz = vals > 0
+    keys = iu[nz].astype(np.int64) * n + ju[nz]
+    return dict(zip(keys.tolist(), vals[nz].tolist()))

@@ -1,0 +1,308 @@
+"""The port's comparator against the JAX package's, on the CPU.
+
+Decode, bucket streaming, CSV writing, the presence-matmul score and
+TorchComparator (both engines, all-vs-all and query mode, in RAM and
+chunked with a resume manifest) must equal supersampler_tpu's exactly:
+integers, strings and bytes. Inputs are the repo's goldens, or made
+from a seed."""
+
+import glob
+import io
+import json
+import os
+import random
+
+import numpy as np
+import pytest
+import torch
+
+import supersampler_tpu.compare.reader as JR
+import supersampler_tpu.compare.stream as JST
+import supersampler_tpu.compare.writers as JW
+import supersampler_tpu.parallel.compare_dist as JCD
+import supersampler_tpu_torch.compare.reader as TR
+import supersampler_tpu_torch.compare.stream as TST
+import supersampler_tpu_torch.compare.writers as TW
+import supersampler_tpu_torch.parallel.compare_dist as TCD
+from supersampler_tpu.compare.merge import TpuComparator
+from supersampler_tpu.io.gzip_exact import write_gzip_exact
+from supersampler_tpu.oracle.subsampler import OracleSubsampler
+from supersampler_tpu_torch.compare.merge import TorchComparator
+
+_GOLD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
+_FILES = [os.path.join(_GOLD, f"gfam_fam{i}.gz") for i in range(4)]
+_SKETCHES = sorted(os.path.basename(p) for p in
+                   glob.glob(os.path.join(_GOLD, "sketch_*.gz"))
+                   + glob.glob(os.path.join(_GOLD, "gfam_fam*.gz")))
+_ENGINES = ["numpy", "device"]
+
+
+def _run(cls, files, query_size, engine="numpy", chunk_bytes=None,
+         **kw):
+    kw = dict(kw, engine=engine)
+    if cls is TorchComparator and engine == "device":
+        kw["device"] = "cpu"
+    c = cls(**kw)
+    c.files_names = list(files)
+    if chunk_bytes is None:
+        c.compare_sketches(query_size)
+    else:
+        assert c.compare_sketches_chunked(query_size,
+                                          chunk_bytes=chunk_bytes)
+    return c
+
+
+def _same_result(a, b):
+    assert a.nb_kmer_seen_infile == b.nb_kmer_seen_infile
+    assert a.score_A == b.score_A
+    assert (a.k, a.m, a.nb_files, a.query_size) == (b.k, b.m, b.nb_files,
+                                                   b.query_size)
+    assert a.containment_csv() == b.containment_csv()
+    assert a.jaccard_csv() == b.jaccard_csv()
+
+
+@pytest.mark.parametrize("name", _SKETCHES)
+def test_decode_sketch_pairs_matches_jax(name):
+    path = os.path.join(_GOLD, name)
+    got = TR.decode_sketch_pairs(path)
+    want = JR.decode_sketch_pairs(path)
+    for a, b in zip(got[:3], want[:3], strict=True):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert got[3:] == want[3:] and got[0].size > 0
+
+
+@pytest.mark.parametrize("chunk_bytes", [1 << 10, 1 << 14, 1 << 30])
+def test_chunk_rounds_matches_jax(chunk_bytes):
+    got = list(TST.chunk_rounds([TST.BucketStream(p) for p in _FILES],
+                                chunk_bytes))
+    want = list(JST.chunk_rounds([JST.BucketStream(p) for p in _FILES],
+                                 chunk_bytes))
+    assert got == want and got
+    if chunk_bytes == 1 << 10:
+        assert len(got) > 4
+
+
+@pytest.mark.parametrize("jaccard", [False, True])
+@pytest.mark.parametrize("query_size,precision,threshold",
+                         [(7, 6, 0.0), (3, 3, 0.05), (1, 2, 0.5)])
+def test_matrix_csv_matches_jax(tmp_path, jaccard, query_size, precision,
+                                threshold):
+    rng = np.random.default_rng(query_size)
+    n = 7
+    names = [f"f{i}.gz" for i in range(n)]
+    seen = rng.integers(50, 5000, n).tolist()
+    score = {i * n + j: int(rng.integers(1, min(seen[i], seen[j])))
+             for i in range(n) for j in range(i + 1, n)
+             if rng.random() < 0.7}
+    args = (names, score, seen, query_size, precision, threshold, jaccard)
+    text = TW.matrix_csv(*args)
+    assert text == JW.matrix_csv(*args)
+    TW.write_matrix_gz(str(tmp_path / "t.csv.gz"), text)
+    JW.write_matrix_gz(str(tmp_path / "j.csv.gz"), text)
+    assert ((tmp_path / "t.csv.gz").read_bytes()
+            == (tmp_path / "j.csv.gz").read_bytes())
+
+
+@pytest.mark.parametrize("query_size", [None, 2])
+@pytest.mark.parametrize("chunk_groups", [512, 1 << 18])
+def test_score_matrix_matches_jax(query_size, chunk_groups):
+    got = TCD.build_presence_chunks(_FILES, query_size)
+    want = JCD.build_presence_chunks(_FILES, query_size)
+    for a, b in zip(got[:2], want[:2], strict=True):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert got[2:] == want[2:]
+    gids, fids, n_groups, nb_seen, _k, _m = got
+    score = TCD.score_matrix_device(gids, fids, n_groups, len(_FILES),
+                                    "cpu", chunk_groups=chunk_groups)
+    ref = JCD.score_matrix_device(gids, fids, n_groups, len(_FILES),
+                                  mesh=None, chunk_groups=chunk_groups)
+    assert score.dtype == np.int64 and np.array_equal(score, ref)
+    if query_size is None:
+        assert [int(score[i, i]) for i in range(4)] == nb_seen
+    qs = query_size or 4
+    assert (TCD.scores_to_dict(score, qs) == JCD.scores_to_dict(ref, qs)
+            == _run(TpuComparator, _FILES, qs).score_A)
+
+
+@pytest.mark.parametrize("n_files", [1, 9, 30])
+def test_score_matrix_seeded_matches_jax(n_files):
+    """Random presence coordinates at file counts around the padding
+    of the file axis (24, then multiples of 8); 9,000 groups take three
+    steps of 4,096 (the least step size) at chunk_groups=512."""
+    rng = np.random.default_rng(n_files)
+    pres = rng.random((9000, n_files)) < rng.random(n_files)
+    pres[:, 0] |= ~pres.any(1)
+    gids, fids = (x.astype(np.int32) for x in np.nonzero(pres))
+    score = TCD.score_matrix_device(gids, fids, 9000, n_files, "cpu",
+                                    chunk_groups=512)
+    ref = JCD.score_matrix_device(gids, fids, 9000, n_files, mesh=None,
+                                  chunk_groups=512)
+    assert np.array_equal(score, ref)
+    assert np.array_equal(score, pres.T.astype(np.int64)
+                          @ pres.astype(np.int64))
+
+
+@pytest.mark.parametrize("engine", _ENGINES)
+@pytest.mark.parametrize("query", [False, True])
+def test_comparator_matches_jax(engine, query):
+    kw = dict(precision=3, min_threshold=0.05) if query else {}
+    qs = 2 if query else len(_FILES)
+    _same_result(_run(TorchComparator, _FILES, qs, engine, **kw),
+                 _run(TpuComparator, _FILES, qs, **kw))
+
+
+_K_CONFIGS = [(21, 7, "5"), (15, 5, "2"), (63, 15, "3")]
+
+
+@pytest.fixture(scope="module")
+def other_k_sketches(datadir, tmp_path_factory):
+    """Three family genomes sketched at each non-default (k, m) by the
+    JAX package's scalar spec."""
+    d = tmp_path_factory.mktemp("other_k")
+    out = {}
+    for k, m, s in _K_CONFIGS:
+        out[k] = []
+        for i in range(3):
+            ss = OracleSubsampler(k=k, m=m, s=float(np.float32(s)))
+            out[k].append(str(d / f"k{k}_{i}.gz"))
+            write_gzip_exact(out[k][-1],
+                             ss.sketch_file(datadir[f"fam{i}"]), 9)
+    return out
+
+
+@pytest.mark.parametrize("engine", _ENGINES)
+@pytest.mark.parametrize("k", [c[0] for c in _K_CONFIGS])
+def test_compare_other_k_configs(other_k_sketches, engine, k):
+    files = other_k_sketches[k]
+    for qs in (3, 1):
+        _same_result(_run(TorchComparator, files, qs, engine),
+                     _run(TpuComparator, files, qs))
+
+
+def test_comparator_rejects_unknown_engine():
+    with pytest.raises(ValueError):
+        TorchComparator(engine="auto")
+
+
+@pytest.mark.parametrize("torch_device", ["cpu", None])
+def test_comparator_defaults_to_device_engine(monkeypatch, torch_device):
+    """TorchComparator() takes the device engine on default_device():
+    the CPU only when $TORCH_DEVICE asks for it; without it, CUDA, which
+    raises where there is no card rather than dropping to the CPU or to
+    the numpy engine."""
+    if torch_device is None:
+        monkeypatch.delenv("TORCH_DEVICE", raising=False)
+        if torch.cuda.is_available():
+            assert TorchComparator().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError):
+                TorchComparator()
+        return
+    monkeypatch.setenv("TORCH_DEVICE", torch_device)
+    c = TorchComparator()
+    assert c.engine == "device" and c.device.type == torch_device
+    c.files_names = list(_FILES)
+    c.compare_sketches(len(_FILES))
+    _same_result(c, _run(TpuComparator, _FILES, len(_FILES)))
+
+
+def test_group_pairs_is_the_comparators_grouping():
+    """build_presence_chunks and TorchComparator share one grouping:
+    the numpy engine's scores from build_presence_chunks' coordinates
+    equal the comparator's."""
+    from supersampler_tpu_torch.compare.merge import pair_scores_numpy
+    gids, fids, n_groups, nb_seen, _k, _m = TCD.build_presence_chunks(
+        _FILES)
+    c = _run(TorchComparator, _FILES, len(_FILES), "numpy")
+    assert pair_scores_numpy(gids.astype(np.int64), fids.astype(np.int64),
+                             len(_FILES)) == c.score_A
+    assert nb_seen == c.nb_kmer_seen_infile
+
+
+# chunked / streaming comparison (mirrors tests/test_chunked_compare.py)
+
+
+@pytest.mark.parametrize("engine", _ENGINES)
+@pytest.mark.parametrize("chunk_bytes", [1 << 10, 1 << 14, 1 << 30])
+def test_chunked_equals_full(engine, chunk_bytes):
+    ref = _run(TorchComparator, _FILES, len(_FILES), engine)
+    c = _run(TorchComparator, _FILES, len(_FILES), engine, chunk_bytes)
+    _same_result(c, ref)
+    j = _run(TpuComparator, _FILES, len(_FILES), "numpy", chunk_bytes)
+    _same_result(c, j)
+    assert c.max_chunk_pairs == j.max_chunk_pairs
+    if chunk_bytes == 1 << 10:
+        # bounded memory really engaged: many small chunks
+        assert c.max_chunk_pairs < sum(ref.nb_kmer_seen_infile)
+
+
+@pytest.mark.parametrize("engine", _ENGINES)
+def test_chunked_query_mode(engine):
+    kw = dict(precision=3, min_threshold=0.05)
+    c = _run(TorchComparator, _FILES, 2, engine, 1 << 12, **kw)
+    _same_result(c, _run(TorchComparator, _FILES, 2, engine, **kw))
+    _same_result(c, _run(TpuComparator, _FILES, 2, **kw))
+
+
+def test_resume_after_kill(tmp_path):
+    """Stop after 2 chunks (simulated kill): the manifest equals the
+    JAX package's; resume from it to byte-identical CSVs."""
+    manifest = str(tmp_path / "resume.json")
+    jmanifest = str(tmp_path / "jresume.json")
+    c1 = TorchComparator(engine="numpy")
+    c1.files_names = list(_FILES)
+    assert not c1.compare_sketches_chunked(
+        len(_FILES), chunk_bytes=1 << 10, resume_path=manifest,
+        max_chunks=2)
+    j1 = TpuComparator()
+    j1.files_names = list(_FILES)
+    j1.compare_sketches_chunked(len(_FILES), chunk_bytes=1 << 10,
+                                resume_path=jmanifest, max_chunks=2)
+    with open(manifest) as f, open(jmanifest) as g:
+        man = json.load(f)
+        assert man == json.load(g)
+    assert man["chunk_idx"] == 2
+
+    c2 = TorchComparator(engine="device", device="cpu")
+    c2.files_names = list(_FILES)
+    assert c2.compare_sketches_chunked(len(_FILES), chunk_bytes=1 << 10,
+                                       resume_path=manifest)
+    assert not os.path.exists(manifest)     # completed => removed
+    _same_result(c2, _run(TpuComparator, _FILES, len(_FILES)))
+
+
+def test_resume_manifest_guards_file_list(tmp_path):
+    manifest = str(tmp_path / "resume.json")
+    c1 = TorchComparator(engine="numpy")
+    c1.files_names = list(_FILES)
+    c1.compare_sketches_chunked(len(_FILES), chunk_bytes=1 << 10,
+                                resume_path=manifest, max_chunks=1)
+    c2 = TorchComparator(engine="numpy")
+    c2.files_names = list(reversed(_FILES))
+    with pytest.raises(ValueError):
+        c2.compare_sketches_chunked(len(_FILES), chunk_bytes=1 << 10,
+                                    resume_path=manifest)
+
+
+def test_large_collection_bounded(tmp_path):
+    """200 small sketches compare under a small chunk budget with
+    results equal to the JAX package's in-RAM engine."""
+    rng = random.Random(4242)
+    base = "".join(rng.choice("ACGT") for _ in range(3000))
+    paths = []
+    for i in range(200):
+        seq = "".join(c if rng.random() > 0.05 else rng.choice("ACGT")
+                      for c in base)
+        ss = OracleSubsampler(k=31, m=11, s=3.0)
+        ss.log = io.StringIO()
+        ss.scan_sequence(seq)
+        paths.append(str(tmp_path / f"s{i}.gz"))
+        write_gzip_exact(paths[-1], ss.serialize(), 9)
+
+    ref = _run(TpuComparator, paths, len(paths))
+    c = _run(TorchComparator, paths, len(paths), "numpy", 1 << 14)
+    assert c.score_A == ref.score_A
+    assert c.nb_kmer_seen_infile == ref.nb_kmer_seen_infile
+    # memory proxy: the largest chunk held a small fraction of the
+    # collection's total pair volume
+    assert c.max_chunk_pairs < sum(ref.nb_kmer_seen_infile) // 4

@@ -22,6 +22,7 @@ from supersampler_tpu_torch.core.scalar import compute_threshold
 from supersampler_tpu_torch.ops import fused as FU
 from supersampler_tpu_torch.ops.minimizer import pack_2bit
 from supersampler_tpu_torch.ops.scan_kernel import scan_kernel, scan_plain
+from supersampler_tpu_torch.parallel import compare_dist as CD
 from supersampler_tpu_torch.sketch import TorchSubsampler
 
 pytestmark = pytest.mark.cuda
@@ -251,3 +252,25 @@ def test_golden_sketch_on_cuda_v2(cuda, tmp_path, monkeypatch):
     FU.scan2_kernel.launches = 0
     _golden_big(tmp_path, cuda, "field")
     assert FU.scan2_kernel.launches > 0
+
+
+@pytest.mark.parametrize("chunk_groups", [512, 1 << 18])
+@pytest.mark.parametrize("n_files", [1, 4, 17, 64, 130])
+def test_score_matrix_on_cuda_equals_cpu(cuda, n_files, chunk_groups):
+    """The presence product through torch._int_mm on the card equals
+    the CPU's at file counts on each side of its shape rules (more than
+    16 rows, sizes multiples of 8); 10,000 groups take three steps at
+    chunk_groups=512."""
+    rng = np.random.default_rng(n_files)
+    pres = rng.random((10000, n_files)) < rng.random(n_files)
+    pres[:, 0] |= ~pres.any(1)
+    gids, fids = (x.astype(np.int32) for x in np.nonzero(pres))
+    CD.presence_product.launches = 0
+    got = CD.score_matrix_device(gids, fids, 10000, n_files, cuda,
+                                 chunk_groups=chunk_groups)
+    assert CD.presence_product.launches == (3 if chunk_groups == 512 else 1)
+    want = CD.score_matrix_device(gids, fids, 10000, n_files, "cpu",
+                                  chunk_groups=chunk_groups)
+    assert got.dtype == np.int64 and np.array_equal(got, want)
+    assert np.array_equal(got, pres.T.astype(np.int64)
+                          @ pres.astype(np.int64))

@@ -1,7 +1,8 @@
 """The PyTorch port imports no JAX and nothing of supersampler_tpu.
 
 A fresh interpreter imports every module of supersampler_tpu_torch,
-sketches a small FASTA on the CPU and runs the CLI; ``jax`` and
+sketches a small FASTA on the CPU and runs the sub_sampler CLI and the
+comparator CLI over the family goldens; ``jax`` and
 ``supersampler_tpu`` / ``supersampler_tpu.*`` are then still absent
 from sys.modules. The port's copies of the host layer are held to their
 JAX-package originals."""
@@ -26,11 +27,12 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import contextlib, importlib, io, os, pkgutil, random, sys, tempfile
 import supersampler_tpu_torch as pkg
+REPO = os.getcwd()
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 17, names
-from supersampler_tpu_torch.cli import sub_sampler
+assert len(names) >= 30, names
+from supersampler_tpu_torch.cli import comparator, sub_sampler
 from supersampler_tpu_torch.sketch import TorchSubsampler
 rng = random.Random(5)
 with tempfile.TemporaryDirectory() as tmp:
@@ -47,6 +49,14 @@ with tempfile.TemporaryDirectory() as tmp:
     with contextlib.redirect_stdout(out):
         rc = sub_sampler.main(["-i", path, "-s", "10", "-p", "cli_"])
     assert rc == 0 and os.path.getsize("cli_g.gz") > 0, out.getvalue()
+    gold = os.path.join(REPO, "tests", "golden")
+    with open("fof.txt", "w") as f:
+        f.writelines(os.path.join(gold, "gfam_fam%d.gz\\n" % i)
+                     for i in range(4))
+    with contextlib.redirect_stdout(out):
+        rc = comparator.main(["-f", "fof.txt"])
+    assert rc == 0 and "I found 4 documents" in out.getvalue()
+    assert os.path.getsize("results_jaccard.csv.gz") > 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "supersampler_tpu"))
 print("MODULES", len(names), "FORBIDDEN", bad)
@@ -85,8 +95,17 @@ def test_int_to_string_matches_jax(n):
 
 def test_host_constants_match_jax():
     for name in ("MASK64", "PRIME1", "PRIME2", "PRIME3", "PRIME4",
-                 "PRIME5", "SEED"):
+                 "PRIME5", "SEED", "INT2NUC"):
         assert getattr(TS, name) == getattr(JS, name), name
+    assert TS.NUC2INT_LUT.dtype == JS.NUC2INT_LUT.dtype
+    assert np.array_equal(TS.NUC2INT_LUT, JS.NUC2INT_LUT)
+    rng = np.random.default_rng(9)
+    for k in (1, 11, 31, 32, 33, 63):
+        for _ in range(20):
+            num = int(rng.integers(0, 1 << 62)) << 64 | int(
+                rng.integers(0, 1 << 62))
+            num &= (1 << 2 * k) - 1
+            assert TS.num2str(num, k) == JS.num2str(num, k)
 
 
 @pytest.mark.parametrize("window,max_records", [(1 << 20, 4096), (97, 3)])
