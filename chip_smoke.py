@@ -60,13 +60,26 @@ Phases, each printing its result; any failure exits non-zero:
      presence product's time (CUDA events) beside its bound (block
      bytes over the HBM rate against int8 operations over the dense
      int8 tensor-core rate). The product is a library call
-     (cuBLASLt), not a kernel of the table.
+     (cuBLASLt), not a kernel of the table;
+  6. multi-device (parallel/mesh.py, dist.py, dryrun.py): a 4,096 x
+     2,048-position read batch through sharded_field_resolve_fn over
+     every card and over cuda:0 listed four times, on v1 and v2, record
+     for record equal to one scan_resolve_batch, with the scan (v2 scan)
+     and sweep launched on every shard; sharded_scan_fn over four
+     entries equal to batched_scan_fn; phase 5's 64 sketches compared
+     over a four-entry mesh (CSVs equal the numpy engine's, the score
+     matrix one device's at the default step and at 4,096 groups a
+     step); two gloo processes on the card (tests/torch_dist_worker.py)
+     comparing those sketches (CSVs byte-equal to the CLI's) and
+     sketching 8 of the genomes (bytes equal to phase 5's); the dry run
+     over every card and over cuda:0 listed four times.
 After the phases no supersampler_tpu module may have been imported.
 The line before the last is the kernel table, each kernel with its
 time, its plain version's time and its bound (the larger of the bytes
 it must move over the HBM rate and its 32-bit ALU operations over the
 card's scalar peak), the scans also with the batch's time and bound and
-their time on the tile of repeats, the sweeps (sweep 1
+their time on the tile of repeats, the launches of one sharded call
+of phase 6's batch over four entries (mesh_launches), the sweeps (sweep 1
 of the tile resolve) also with the sum over the resolve's five sweeps
 and their bounds and the batch's times; the last line is
 {"ok": true, "device": {...}}.
@@ -1135,7 +1148,10 @@ def phase_compare_real(rng, device, workdir, timing=True,
     engine, 1 MiB chunks) and through score_matrix_device at 4,096
     groups a step; every score_A, nb_kmer_seen_infile and CSV must
     agree. Then sort_csv and kmer_dump on this corpus. The launch
-    counters are reset before and read after. Returns the counts."""
+    counters are reset before and read after. Returns the counts and
+    what phase 6 reuses: the directory, the FASTAs and sketches, the
+    numpy engine's comparator, the grouped pairs and the single-device
+    score matrix."""
     from supersampler_tpu_torch.cli import comparator as ccli
     from supersampler_tpu_torch.cli import kmer_dump as kcli
     from supersampler_tpu_torch.cli import sort_csv as scli
@@ -1143,6 +1159,7 @@ def phase_compare_real(rng, device, workdir, timing=True,
     from supersampler_tpu_torch.compare.merge import (TorchComparator,
                                                       pair_scores_numpy)
     from supersampler_tpu_torch.parallel import compare_dist as CD
+    from supersampler_tpu_torch.parallel.mesh import make_mesh
 
     d = os.path.join(workdir, "cmp_real")
     os.makedirs(d)
@@ -1210,12 +1227,13 @@ def phase_compare_real(rng, device, workdir, timing=True,
         raise AssertionError("the numpy engine's enumeration differs")
     gids, fids = gids.astype(np.int32), fids.astype(np.int32)
     t = time.perf_counter()
-    score = CD.score_matrix_device(gids, fids, n_groups, len(files),
-                                   device, chunk_groups=4096)
+    one = make_mesh([device])
+    score = CD.score_matrix_device(gids, fids, n_groups, len(files), one,
+                                   chunk_groups=4096)
     walls["steps"] = time.perf_counter() - t
     t = time.perf_counter()
     score_default = CD.score_matrix_device(gids, fids, n_groups,
-                                           len(files), device)
+                                           len(files), one)
     walls["steps_default"] = time.perf_counter() - t
     if not np.array_equal(score, score_default):
         raise AssertionError("score_matrix_device depends on its steps")
@@ -1260,7 +1278,7 @@ def phase_compare_real(rng, device, workdir, timing=True,
 
     # the card's product against the CPU's, then timed
     cpu_score = CD.score_matrix_device(gids, fids, n_groups, len(files),
-                                       "cpu", chunk_groups=4096)
+                                       make_mesh(["cpu"]), chunk_groups=4096)
     if not np.array_equal(cpu_score, score):
         raise AssertionError("score matrix: card != CPU")
     log(f"  score matrix: card == CPU ({n} x {n}, max_abs_err 0)")
@@ -1312,7 +1330,301 @@ def phase_compare_real(rng, device, workdir, timing=True,
     log(f"  sort_csv ({n} x {n} jaccard, reversed order) and kmer_dump "
         f"({len(kmers)} k-mers == nb_kmer_seen_infile of "
         f"{os.path.basename(files[0])}) agree")
-    return counts
+    return {"counts": counts, "dir": d, "fastas": fastas, "files": files,
+            "ref": ref, "gids": gids, "fids": fids, "n_groups": n_groups,
+            "score": score_default}
+
+
+@contextmanager
+def per_shard_launches(per_shard: list):
+    """Inside the block, every shard's scan_resolve_batch call in
+    parallel/mesh.py appends the launches it made (the wrappers' own
+    counters, read before and after the call) to per_shard."""
+    from supersampler_tpu_torch.parallel import mesh as ME
+
+    orig = ME.scan_resolve_batch
+
+    def counted(*args):
+        before = read_launches()
+        out = orig(*args)
+        after = read_launches()
+        per_shard.append({key: after[key] - before[key]
+                          for key in ("scan", "scan2", "sweep")})
+        return out
+
+    ME.scan_resolve_batch = counted
+    try:
+        yield
+    finally:
+        ME.scan_resolve_batch = orig
+
+
+def _meshes(device):
+    """(every visible card, the first card listed four times); on the
+    CPU, (one CPU entry, four)."""
+    from supersampler_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return make_mesh(), make_mesh(["cuda:0"] * 4)
+    return make_mesh([dev]), make_mesh([dev] * 4)
+
+
+def _same_records(got, want, what: str) -> None:
+    for b, (x, y) in enumerate(zip(got, want, strict=True)):
+        for i, (a, c) in enumerate(zip(x, y, strict=True)):
+            if not np.array_equal(np.asarray(a), np.asarray(c)):
+                raise AssertionError(f"{what}: record {b}, field {i} "
+                                     f"differs from one device's")
+
+
+def phase_mesh_resolve(rng, device, n_rec=4096, P_rec=2048,
+                       timing=True) -> dict:
+    """Phase 6a: a reads-route batch (n_rec random records of P_rec
+    positions, lengths 1,000-1,900) through sharded_field_resolve_fn
+    over every card and over cuda:0 listed four times, on v1 and on v2
+    (SPSP_FUSED=1): every shard's records equal one scan_resolve_batch
+    of the whole batch on the card, and every shard launches the scan
+    (v2: the v2 scan) and the sweep. Returns the launches of one call
+    over the four entries, by path."""
+    from supersampler_tpu_torch.ops.field import (parse_batched_array,
+                                                  scan_resolve_batch)
+    from supersampler_tpu_torch.ops.minimizer import pack_2bit
+    from supersampler_tpu_torch.parallel.mesh import sharded_field_resolve_fn
+    from supersampler_tpu_torch.sketch import TorchSubsampler
+
+    dev = torch.device(device)
+    ss = TorchSubsampler(K, M, S, device=dev)
+    cap = ss._short_cap(n_rec * P_rec)      # the reads route's list cap
+    lengths = rng.integers(1000, 1901, n_rec).astype(np.int32)
+    codes = rng.integers(0, 4, (n_rec, P_rec), dtype=np.uint8)
+    codes[np.arange(P_rec) >= lengths[:, None]] = 0
+    packed = pack_2bit(torch.from_numpy(codes)).reshape(n_rec, -1)
+    lengths = torch.from_numpy(lengths)
+    gpu = gpu_line()
+    out = {}
+    for path in ("v1", "v2"):
+        scan = "scan2" if path == "v2" else "scan"
+        with fused_env() if path == "v2" else env_vars():
+            reset_launches()
+            t = time.perf_counter()
+            whole = scan_resolve_batch(packed.to(dev), K, M, P_rec, cap,
+                                       lengths.to(dev), *ss._thr)
+            whole = whole.cpu().numpy()
+            t_whole = time.perf_counter() - t
+            g, n_sel, want, _st = parse_batched_array(whole, cap, n_rec)
+            if g != 0 or want is None:
+                raise AssertionError(f"{path}: the whole batch did not "
+                                     f"resolve (status {g}, {n_sel} > "
+                                     f"{cap}?)")
+            log(f"  {path}, one scan_resolve_batch of {n_rec} x {P_rec} "
+                f"(cap {cap}, {n_sel} selected): {t_whole:.4f} s, "
+                f"launches {read_launches()} [{gpu}]")
+            for mesh in _meshes(dev):
+                fn = sharded_field_resolve_fn(mesh, K, M, P_rec, cap)
+                shards = []
+                reset_launches()
+                with per_shard_launches(shards):
+                    t = time.perf_counter()
+                    rows = fn(packed, lengths, *ss._thr)
+                    walls = [time.perf_counter() - t]
+                counts = read_launches()
+                if (len(shards) != mesh.size
+                        or any(c[scan] <= 0 or c["sweep"] <= 0
+                               for c in shards)):
+                    raise AssertionError(f"{path}: a shard launched no "
+                                         f"{scan} or sweep: {shards}")
+                got = []
+                for row in rows:
+                    g, _n, comps, _st = parse_batched_array(
+                        row, cap, n_rec // mesh.size)
+                    if g != 0 or comps is None:
+                        raise AssertionError(f"{path}: a shard did not "
+                                             f"resolve (status {g})")
+                    got.extend(comps)
+                names = [str(d) for d in mesh.devices]
+                _same_records(got, want, f"{path} over {names}")
+                for _ in range(2 if timing else 0):
+                    t = time.perf_counter()
+                    fn(packed, lengths, *ss._thr)
+                    walls.append(time.perf_counter() - t)
+                each = "; ".join(f"{c[scan]} {scan}, {c['sweep']} sweep"
+                                 for c in shards)
+                log(f"  {path} over {names}: {n_rec} records equal one "
+                    f"device's; launches per shard ({each}); walls of one "
+                    f"call {', '.join(f'{w:.4f}' for w in walls)} s (the "
+                    f"first counted) [{gpu}]")
+                out[path] = counts      # the last mesh: four entries
+    return out
+
+
+def phase_mesh_scan(rng, device, n_rec=8, P=1 << 16) -> None:
+    """Phase 6b: sharded_scan_fn over the first device listed four
+    times on n_rec records of P positions equals batched_scan_fn on one
+    device, field by field; one scan launch a record."""
+    from supersampler_tpu_torch.ops.minimizer import ScanTables
+    from supersampler_tpu_torch.parallel.mesh import (batched_scan_fn,
+                                                      sharded_scan_fn)
+    from supersampler_tpu_torch.sketch import TorchSubsampler
+
+    dev = torch.device(device)
+    thr = TorchSubsampler(K, M, S, device=dev)._thr
+    lengths = rng.integers(P // 2, P - 7, n_rec).astype(np.int32)
+    codes = rng.integers(0, 4, (n_rec, P), dtype=np.uint8)
+    codes[np.arange(P) >= lengths[:, None]] = 0
+    codes, lengths = torch.from_numpy(codes), torch.from_numpy(lengths)
+    want = batched_scan_fn(K, M, P)(codes.to(dev), lengths, *thr)
+    quad = _meshes(dev)[1]
+    reset_launches()
+    t = time.perf_counter()
+    got = sharded_scan_fn(quad, K, M, P)(codes, lengths, *thr)
+    wall = time.perf_counter() - t
+    counts = read_launches()
+    err = max_abs_err(list(got), list(want))
+    if err or counts["scan"] != n_rec:
+        raise AssertionError(f"sharded scan: max_abs_err {err}, launches "
+                             f"{counts}")
+    log(f"  sharded_scan_fn over {[str(d) for d in quad.devices]}, "
+        f"{n_rec} x {P}: all {len(ScanTables._fields)} fields equal "
+        f"batched_scan_fn's (max_abs_err 0); {counts['scan']} scan "
+        f"launches; {wall:.4f} s [{gpu_line()}]")
+
+
+def phase_mesh_compare(ctx, device) -> None:
+    """Phase 6c: phase 5b's sketches compared with the device engine
+    over the first device listed four times: score_A, the seen counts
+    and the CSVs equal the numpy engine's; score_matrix_device over that
+    mesh at the default step and at 4,096 groups a step equals one
+    device's matrix."""
+    from supersampler_tpu_torch.compare.merge import TorchComparator
+    from supersampler_tpu_torch.parallel import compare_dist as CD
+
+    quad = _meshes(device)[1]
+    files, ref = ctx["files"], ctx["ref"]
+    reset_launches()
+    t = time.perf_counter()
+    comp = TorchComparator(engine="device", mesh=quad)
+    comp.files_names = list(files)
+    comp.compare_sketches(len(files))
+    wall = time.perf_counter() - t
+    if (comp.score_A != ref.score_A
+            or comp.nb_kmer_seen_infile != ref.nb_kmer_seen_infile
+            or comp.containment_csv() != ref.containment_csv()
+            or comp.jaccard_csv() != ref.jaccard_csv()):
+        raise AssertionError("mesh comparator differs from the numpy "
+                             "engine")
+    steps = {}
+    for chunk in (1 << 18, 4096):
+        t = time.perf_counter()
+        score = CD.score_matrix_device(ctx["gids"], ctx["fids"],
+                                       ctx["n_groups"], len(files), quad,
+                                       chunk_groups=chunk)
+        steps[chunk] = time.perf_counter() - t
+        if not np.array_equal(score, ctx["score"]):
+            raise AssertionError(f"mesh score matrix at {chunk} groups a "
+                                 f"step differs from one device's")
+    counts = read_launches()
+    if counts["int_mm"] <= 0:
+        raise AssertionError(f"the product never launched: {counts}")
+    log(f"  comparator over {[str(d) for d in quad.devices]}: "
+        f"{len(files)} sketches, CSVs equal the numpy engine's, "
+        f"compare_sketches {wall:.3f} s; score_matrix_device over the "
+        f"mesh == one device at the default step ({steps[1 << 18]:.4f} s)"
+        f" and at 4,096 groups a step ({steps[4096]:.4f} s); launches "
+        f"{counts} [{gpu_line()}]")
+
+
+def phase_dist(ctx, device, workdir, n_sketch=8) -> None:
+    """Phase 6d: two processes (gloo, file store, both on the device)
+    run tests/torch_dist_worker.py: compare_all_vs_all_distributed over
+    phase 5b's sketches, whose CSVs must be byte-equal to the
+    single-process CLI's, and sketch_fof_distributed over n_sketch of
+    its FASTAs at s = 100, whose union must be byte-equal to the
+    single-process sketches. Each rank must exit 0 within 300 s."""
+    d = os.path.join(workdir, "dist")
+    os.makedirs(d)
+    fof = os.path.join(d, "sketches.txt")
+    with open(fof, "w") as f:
+        f.writelines(p + "\n" for p in ctx["files"])
+    sfof = os.path.join(d, "genomes.txt")
+    with open(sfof, "w") as f:
+        f.writelines(p + "\n" for p in ctx["fastas"][:n_sketch])
+    worker = os.path.join(ROOT, "tests", "torch_dist_worker.py")
+    env = dict(os.environ, TORCH_DEVICE=str(device))
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, worker, "--init", f"file://{d}/store", "--rank",
+         str(r), "--world", "2", "--out", d, "--fof", fof, "--sketch-fof",
+         sfof, "--s", "100"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    try:
+        for r, p in enumerate(procs):
+            _out, err = p.communicate(timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"rank {r} exited {p.returncode}: "
+                                     f"{err[-3000:]}")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t
+    owned = []
+    for r in range(2):
+        for kind in ("containment", "jaccard"):
+            _same_bytes(os.path.join(d, f"rank{r}_{kind}.csv.gz"),
+                        os.path.join(ctx["dir"], f"cli_{kind}.csv.gz"),
+                        f"rank {r} against the single-process CLI")
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            rec = json.load(f)
+        with open(os.path.join(d, f"rank{r}_sketches.txt")) as f:
+            mine = f.read().split()
+        owned += mine
+        if torch.device(device).type == "cuda" and (
+                rec["launches"]["scan"] <= 0
+                or rec["launches"]["int_mm"] <= 0):
+            raise AssertionError(f"rank {r}: a kernel never launched: "
+                                 f"{rec['launches']}")
+        w = rec["walls"]
+        log(f"  rank {r} of 2: {len(mine)} sketches; walls: init "
+            f"{w['init']:.3f} s, compare {w['compare']:.3f} s, sketch "
+            f"{w['sketch']:.3f} s; launches {rec['launches']} "
+            f"[{gpu_line()}]")
+    names = sorted(os.path.basename(p) for p in owned)
+    want = sorted("sk_" + os.path.basename(p)[:-3] + ".gz"
+                  for p in ctx["fastas"][:n_sketch])
+    if names != want:
+        raise AssertionError(f"the ranks' sketches {names} != {want}")
+    for p in owned:
+        _same_bytes(p, os.path.join(ctx["dir"], os.path.basename(p)),
+                    "a rank's sketch against the single-process one")
+    log(f"  2 ranks (gloo, both on {device}): CSVs of {len(ctx['files'])} "
+        f"sketches byte-equal to the CLI's on both ranks; {len(owned)} "
+        f"sketches byte-equal to one process's; {wall:.3f} s from start "
+        f"to exit [{gpu_line()}]")
+
+
+def phase_dryrun(device) -> None:
+    """Phase 6e: dryrun_multichip over every card, and over the first
+    card listed four times."""
+    from supersampler_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    dev = torch.device(device)
+    reset_launches()
+    t = time.perf_counter()
+    if dev.type == "cuda":
+        dryrun_multichip(torch.cuda.device_count())
+        dryrun_multichip(4, devices=["cuda:0"] * 4)
+    else:
+        dryrun_multichip(1, devices=[dev])
+        dryrun_multichip(4, devices=[dev] * 4)
+    wall = time.perf_counter() - t
+    counts = read_launches()
+    if counts["scan"] <= 0 or counts["sweep"] <= 0 or counts["int_mm"] <= 0:
+        raise AssertionError(f"a kernel of the dry run never launched: "
+                             f"{counts}")
+    log(f"  both dry runs passed in {wall:.3f} s; launches {counts} "
+        f"[{gpu_line()}]")
 
 
 def main(argv=None) -> int:
@@ -1375,7 +1687,18 @@ def main(argv=None) -> int:
         c_legacy = phase_bench_legacy("cuda", tmp, *bench_genome)
         log("[5] comparator on the card")
         phase_compare_goldens("cuda", tmp)
-        phase_compare_real(rng, "cuda", tmp)
+        ctx = phase_compare_real(rng, "cuda", tmp)
+        log("[6] multi-device on the card")
+        mesh_counts = phase_mesh_resolve(rng, "cuda")
+        phase_mesh_scan(rng, "cuda")
+        phase_mesh_compare(ctx, "cuda")
+        phase_dist(ctx, "cuda", tmp)
+        phase_dryrun("cuda")
+    # one sharded call of the 4,096-record batch over four entries
+    for key, path, name in (("scan", "v1", "scan"), ("sweep", "v1", "sweep"),
+                            ("scan2", "v2", "scan2"),
+                            ("sweep_col", "v2", "sweep")):
+        kt[key]["mesh_launches"] = mesh_counts[path][name]
     for name, pre in (("tile", ""), ("1024 x 1 kb batch", "batch_")):
         s1, s2 = kt["scan"], kt["scan2"]
         log(f"  times at the {name}: scan {s1[pre + 'ms']:.4f} ms (plain "
@@ -1416,7 +1739,8 @@ def main(argv=None) -> int:
         extra = {k: r[k] for k in ("all_sweeps_ms", "all_sweeps_bound_ms",
                                    "batch_ms", "batch_bound_ms",
                                    "batch_all_sweeps_ms", "repeats_ms",
-                                   "ms_s1", "one_block_ms")
+                                   "ms_s1", "one_block_ms",
+                                   "mesh_launches")
                  if k in r}
         return {"name": name, "route": "cuda",
                 "source": f"supersampler_tpu_torch/csrc/{source}",

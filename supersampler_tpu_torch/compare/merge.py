@@ -16,8 +16,8 @@ merge, Comparator.cpp:39-74 + 97-287):
 The sorted-array implementation groups identical pairs across files and
 accumulates pairwise counts, either on the host ("numpy") or as the
 presence matmul S = P^T P on a torch device ("device",
-parallel/compare_dist.py). Counterpart of
-supersampler_tpu/compare/merge.py; the mesh is not ported.
+parallel/compare_dist.py), on one device or over a mesh
+(parallel/mesh.py). Counterpart of supersampler_tpu/compare/merge.py.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ import os
 from typing import Dict, List, Optional, Set
 
 import numpy as np
-import torch
 
 from supersampler_tpu_torch import default_device
 from supersampler_tpu_torch.compare.stream import (BucketStream,
@@ -38,6 +37,7 @@ from supersampler_tpu_torch.compare.writers import (matrix_csv,
 from supersampler_tpu_torch.io.fasta import read_fof
 from supersampler_tpu_torch.parallel.compare_dist import (
     decode_files, group_pairs, score_matrix_device, scores_to_dict)
+from supersampler_tpu_torch.parallel.mesh import make_mesh
 
 ENGINES = ("numpy", "device")
 
@@ -81,23 +81,28 @@ class TorchComparator:
 
     engine selects the pairwise-scoring backend once the decoded pairs
     are grouped: "device" (the default) runs the presence matmul
-    S = P^T P on ``device`` (default: ``default_device()``, the card
-    unless $TORCH_DEVICE says otherwise; it raises when CUDA is asked
-    for and absent); "numpy" enumerates co-occurrence pairs on the
-    host. Both produce identical score_A.
+    S = P^T P over the entries of ``mesh``, or on the one ``device``
+    given in its place (default: ``default_device()``, the card unless
+    $TORCH_DEVICE says otherwise; it raises when CUDA is asked for and
+    absent); "numpy" enumerates co-occurrence pairs on the host. Both
+    produce identical score_A.
     """
 
     def __init__(self, precision: int = 6, min_threshold: float = 0.0,
-                 engine: str = "device", device=None):
+                 engine: str = "device", device=None, mesh=None):
         if engine not in ENGINES:
             raise ValueError(f"engine {engine!r} is not one of {ENGINES}")
+        if mesh is not None and engine != "device":
+            raise ValueError("a mesh needs the device engine")
+        if mesh is not None and device is not None:
+            raise ValueError("give a device or a mesh, not both")
         self.precision = precision
         self.min_threshold = min_threshold
         self.engine = engine
-        self.device = None
-        if engine == "device":
-            self.device = (default_device() if device is None
-                           else torch.device(device))
+        if engine == "device" and mesh is None:
+            mesh = make_mesh([default_device() if device is None
+                              else device])
+        self.mesh = mesh
         self.files_names: List[str] = []
         self.score_A: Dict[int, int] = {}
         self.nb_kmer_seen_infile: List[int] = []
@@ -237,7 +242,7 @@ class TorchComparator:
         if self.engine == "device":
             score = score_matrix_device(
                 gid.astype(np.int32), fids.astype(np.int32),
-                int(gid[-1]) + 1, n, self.device)
+                int(gid[-1]) + 1, n, self.mesh)
             add = scores_to_dict(score, query_size)
         else:
             add = pair_scores_numpy(gid, fids, n)

@@ -18,6 +18,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCES = [os.path.join(_PKG, "csrc", f)
             for f in ("scan.cu", "sweep.cu", "walk.cu")]
@@ -135,3 +137,16 @@ def check(err: int, name: str) -> None:
     if err:
         msg = _lib.spsp_cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def launch(name: str, dev, *args) -> None:
+    """Call the C entry ``name`` on ``args`` and the current stream of
+    ``dev``, with ``dev`` made the current device for the call: a launch
+    into the stream of a card that is not current is not reliably
+    refused (the scan then returned wrong tables with no error), and an
+    entry's cudaFuncSetAttribute acts on the current device. Raises on
+    a CUDA error."""
+    with torch.cuda.device(dev):
+        err = getattr(lib(), name)(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
+    check(err, name)

@@ -279,19 +279,16 @@ def sweep_kernel(tabs, se, st0, thr_hi: int, thr_lo: int, W: int,
     if se.device.type != "cuda":
         raise ValueError(f"no sweep kernel for device {se.device}")
     _check_sweep_args(tabs, se, st0, capl, layout)
-    lib = _build.lib()
     n = se.shape[1]
     dev = se.device
     xs = torch.empty((7, n), dtype=_I32, device=dev)
     lists = [torch.empty((capl, n), dtype=_I32, device=dev)
              for _ in range(3)]
-    err = lib.spsp_sweep(
-        *(a.data_ptr() for a in tabs), se.data_ptr(), st0.data_ptr(),
-        thr_hi, thr_lo, n, W, capl, int(force_entry),
+    _build.launch(
+        "spsp_sweep", dev, *(a.data_ptr() for a in tabs), se.data_ptr(),
+        st0.data_ptr(), thr_hi, thr_lo, n, W, capl, int(force_entry),
         int(layout == "col"), xs.data_ptr(),
-        *(a.data_ptr() for a in lists),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "spsp_sweep")
+        *(a.data_ptr() for a in lists))
     sweep_kernel.launches += 1
     return (xs, *lists)
 
@@ -695,6 +692,27 @@ def parse_batched_heads(arr: np.ndarray, cap: int, B_n: int):
     return (gstatus, n_total, heads, body[:cap], body[cap : 2 * cap],
             body[2 * cap : 3 * cap].view(np.uint32),
             body[3 * cap : 4 * cap])
+
+
+def parse_batched_array(arr: np.ndarray, cap: int, B_n: int):
+    """Split resolve_field_batched's fetch array into (global_status,
+    n_sel_total, per-record compact 9-tuples, per-record status).
+    Truncation (n_sel_total > cap) returns comps None; the caller
+    re-dispatches with a bigger cap (supersampler_tpu/ops/field.py:1134)."""
+    gstatus, n_total, heads, pos, last, val, rev = parse_batched_heads(
+        arr, cap, B_n)
+    if pos is None:
+        return gstatus, n_total, None, None
+    offs = np.concatenate([[0], np.cumsum(heads[:, 1].astype(np.int64))])
+    comps = []
+    for b in range(B_n):
+        s, e = int(offs[b]), int(offs[b + 1])
+        comps.append((
+            pos[s:e].astype(np.int64), last[s:e].astype(np.int64),
+            val[s:e], rev[s:e] != 0, int(heads[b, 2]),
+            int(heads[b, 3]), int(np.int64(heads[b, 4]) & 0xFFFFFFFF),
+            bool(heads[b, 5]), bool(heads[b, 6])))
+    return gstatus, n_total, comps, heads[:, 0].astype(np.int64)
 
 
 def parse_field_array(arr: np.ndarray, cap: int):

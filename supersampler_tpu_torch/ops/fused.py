@@ -64,17 +64,14 @@ def scan2_kernel(packed: torch.Tensor, k: int, m: int, P_rec: int):
         raise ValueError(f"no scan2 kernel for device {packed.device}")
     if not packed.is_contiguous():
         raise ValueError("scan2_kernel needs a contiguous input")
-    lib = _build.lib()
     dev = packed.device
     n = P // _B
     cols = [torch.empty((_B, n), dtype=_I32, device=dev) for _ in range(7)]
     fs = torch.empty(n, dtype=_I32, device=dev)
     init = torch.empty((4, n_rec), dtype=_I32, device=dev)
-    err = lib.spsp_scan2(
-        packed.data_ptr(), P, P_rec, k, m, *(c.data_ptr() for c in cols),
-        fs.data_ptr(), init.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "spsp_scan2")
+    _build.launch("spsp_scan2", dev, packed.data_ptr(), P, P_rec, k, m,
+                  *(c.data_ptr() for c in cols), fs.data_ptr(),
+                  init.data_ptr())
     scan2_kernel.launches += 1
     return (*cols, fs, init)
 

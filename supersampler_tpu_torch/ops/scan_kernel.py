@@ -92,16 +92,14 @@ def scan_kernel(packed: torch.Tensor, k: int, m: int, P_rec: int,
         raise ValueError(f"no scan kernel for device {packed.device}")
     if not (packed.is_contiguous() and last_i.is_contiguous()):
         raise ValueError("scan_kernel needs contiguous inputs")
-    lib = _build.lib()
     dev = packed.device
     tabs = [torch.empty(P, dtype=_I32, device=dev) for _ in range(7)]
     sync = torch.empty(P, dtype=torch.bool, device=dev)
     init = torch.empty((4, n_rec), dtype=_I32, device=dev)
-    err = lib.spsp_scan(
-        packed.data_ptr(), P, P_rec, k, m, last_i.data_ptr(),
-        *(t.data_ptr() for t in tabs), sync.data_ptr(), init.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "spsp_scan")
+    _build.launch(
+        "spsp_scan", dev, packed.data_ptr(), P, P_rec, k, m,
+        last_i.data_ptr(), *(t.data_ptr() for t in tabs), sync.data_ptr(),
+        init.data_ptr())
     scan_kernel.launches += 1
     return (*tabs, sync, init)
 

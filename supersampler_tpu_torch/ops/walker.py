@@ -147,20 +147,17 @@ def walk_kernel(packed: torch.Tensor, init5: torch.Tensor):
     _check_walk_args(packed, init5)
     if packed.data_ptr() % 16:
         raise ValueError("packed must be 16-byte aligned")
-    lib = _build.lib()
     n_blocks = packed.numel() // _BP
     dev = packed.device
     outs = [torch.empty((n_blocks, _BP), dtype=_I32, device=dev)
             for _ in range(3)]
     cnt = torch.empty(n_blocks, dtype=_I32, device=dev)
     scal = torch.empty(6, dtype=_I32, device=dev)
-    work = torch.empty(lib.spsp_walk_work_bytes(n_blocks), dtype=torch.uint8,
-                       device=dev)
-    err = lib.spsp_walk(packed.data_ptr(), n_blocks, init5.data_ptr(),
-                        *(a.data_ptr() for a in outs), cnt.data_ptr(),
-                        scal.data_ptr(), work.data_ptr(),
-                        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "spsp_walk")
+    work = torch.empty(_build.lib().spsp_walk_work_bytes(n_blocks),
+                       dtype=torch.uint8, device=dev)
+    _build.launch("spsp_walk", dev, packed.data_ptr(), n_blocks,
+                  init5.data_ptr(), *(a.data_ptr() for a in outs),
+                  cnt.data_ptr(), scal.data_ptr(), work.data_ptr())
     walk_kernel.launches += 1
     return (*outs, cnt, scal)
 

@@ -1,4 +1,4 @@
-"""All-vs-all comparison as a presence matmul on one device.
+"""All-vs-all comparison as a presence matmul on a device or a mesh.
 
 Scoring model: let G be the number of distinct (minimizer, k-mer) pairs
 observed across all N sketches and Pm the (G, N) 0/1 presence matrix.
@@ -6,11 +6,15 @@ Then S = Pm^T Pm has S[i,j] = |pairs shared by files i and j| (the
 reference's score_A, Comparator.cpp:269-287) and S[i,i] =
 nb_kmer_seen_infile[i]. Pair-rows are tiled into steps; each step's
 int8 presence block is built on the device from its (group, file)
-coordinates and multiplied into an integer total.
+coordinates and multiplied into an integer total. With a mesh
+(parallel/mesh.py) a step's groups are cut into one slice per entry,
+each entry keeps its own block and total, and one sum of the totals at
+the end merges them.
 
-Counterpart of supersampler_tpu/parallel/compare_dist.py without the
-mesh: the product, an XLA ``jnp.dot`` there, is ``torch._int_mm``
-here (cuBLASLt's int8 x int8 -> int32 path on CUDA), exact in integers.
+Counterpart of supersampler_tpu/parallel/compare_dist.py: the product,
+an XLA ``jnp.dot`` there, is ``torch._int_mm`` here (cuBLASLt's int8 x
+int8 -> int32 path on CUDA), exact in integers; the final sum stands in
+for the JAX mesh's all-reduce.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 from supersampler_tpu_torch.compare.reader import decode_sketch_pairs
+from supersampler_tpu_torch.parallel.mesh import Mesh
 
 
 def decode_files(files: List[str], query_size: int = None):
@@ -98,13 +103,14 @@ def padded_files(n_files: int) -> int:
     return max(24, -(-n_files // 8) * 8)
 
 
-def step_groups(n_groups: int, n_files: int,
-                chunk_groups: int = 1 << 18) -> int:
-    """Groups a step of score_matrix_device, chosen as the JAX package
-    chooses them: everything in one step when the block fits ~128 MB,
-    else chunk_groups; a power of two of at least 4,096."""
-    chunk_groups = min(chunk_groups, n_groups,
-                       max(4096, (128 << 20) // n_files))
+def step_groups(n_groups: int, n_files: int, chunk_groups: int = 1 << 18,
+                n_dev: int = 1) -> int:
+    """Groups a mesh entry takes per step of score_matrix_device, chosen
+    as the JAX package chooses them (compare_dist.py:121-123):
+    everything in one step when a step's blocks fit ~128 MB, else
+    chunk_groups; a power of two of at least 4,096."""
+    chunk_groups = min(chunk_groups, -(-n_groups // n_dev),
+                       max(4096, (128 << 20) // (n_files * n_dev)))
     return 1 << max(12, (chunk_groups - 1).bit_length())
 
 
@@ -126,38 +132,48 @@ presence_product.launches = 0
 
 
 def score_matrix_device(gids: np.ndarray, fids: np.ndarray, n_groups: int,
-                        n_files: int, device,
+                        n_files: int, mesh: Mesh,
                         chunk_groups: int = 1 << 18) -> np.ndarray:
-    """Accumulate S = Pm^T Pm over group-steps on ``device``.
+    """Accumulate S = Pm^T Pm over group-steps on the entries of ``mesh``
+    (one device is a mesh of one).
 
-    Each step copies its slice of the (group, file) coordinates to the
-    device (two int32 a pair; gids must be sorted, which the grouping
-    construction guarantees) and scatters ones into a zeroed
-    (n_pad, rows) int8 block there, so the host link carries 8 bytes a
-    pair rather than the dense block. Step sizes come from step_groups;
-    the result does not depend on them. Returns the N x N int64 score
-    matrix on the host."""
+    A step covers step_groups(...) groups per mesh entry; the d-th slice
+    of each step goes to entry d. Each slice's (group, file) coordinates
+    are copied to the entry's device (two int32 a pair; gids must be
+    sorted, which the grouping construction guarantees) and scattered as
+    ones into that entry's own zeroed (n_pad, rows) int8 block, so the
+    host link carries 8 bytes a pair rather than the dense block. Each entry keeps its own block and
+    int64 total (two entries may name the same device); the totals are
+    summed once, on the first entry's device, at the end. The result
+    depends neither on the mesh nor on the step size. Returns the N x N
+    int64 score matrix on the host."""
+    devices = mesh.devices
     if n_groups == 0 or fids.size == 0:
         return np.zeros((n_files, n_files), dtype=np.int64)
-    device = torch.device(device)
-    chunk_groups = step_groups(n_groups, n_files, chunk_groups)
-    n_steps = -(-n_groups // chunk_groups)
+    n_dev = len(devices)
+    chunk_groups = step_groups(n_groups, n_files, chunk_groups, n_dev)
+    n_slices = -(-n_groups // chunk_groups)
     n_pad = padded_files(n_files)
-    # gids are sorted: one searchsorted gives every step's slice
-    edges = np.searchsorted(gids, np.arange(1, n_steps + 1) * chunk_groups)
-    block = torch.empty((n_pad, chunk_groups), dtype=torch.int8,
-                        device=device)
-    one = torch.ones((), dtype=torch.int8, device=device)
-    total = torch.zeros((n_pad, n_pad), dtype=torch.int64, device=device)
-    s = 0
-    for step in range(n_steps):
-        e = int(edges[step])
-        rows = torch.from_numpy(gids[s:e] - step * chunk_groups).to(device)
-        cols = torch.from_numpy(fids[s:e]).to(device)
-        block.zero_()
-        block.index_put_((cols, rows), one)
-        total += presence_product(block)
-        s = e
+    # gids are sorted: one searchsorted gives every slice's pairs
+    edges = np.searchsorted(gids, np.arange(n_slices + 1) * chunk_groups)
+    blocks = [torch.empty((n_pad, chunk_groups), dtype=torch.int8,
+                          device=dev) for dev in devices]
+    ones = [torch.ones((), dtype=torch.int8, device=dev) for dev in devices]
+    totals = [torch.zeros((n_pad, n_pad), dtype=torch.int64, device=dev)
+              for dev in devices]
+    # slice i is entry i % n_dev's part of step i // n_dev; the last
+    # step's entries past the groups multiply zero blocks, as JAX's do
+    for i in range(-(-n_slices // n_dev) * n_dev):
+        d = i % n_dev
+        s, e = (int(edges[min(i, n_slices)]),
+                int(edges[min(i + 1, n_slices)]))
+        dev = devices[d]
+        rows = torch.from_numpy(gids[s:e] - i * chunk_groups).to(dev)
+        cols = torch.from_numpy(fids[s:e]).to(dev)
+        blocks[d].zero_()
+        blocks[d].index_put_((cols, rows), ones[d])
+        totals[d] += presence_product(blocks[d])
+    total = sum(t.to(devices[0]) for t in totals[1:]) + totals[0]
     return total[:n_files, :n_files].cpu().numpy()
 
 

@@ -28,6 +28,7 @@ from supersampler_tpu.compare.merge import TpuComparator
 from supersampler_tpu.io.gzip_exact import write_gzip_exact
 from supersampler_tpu.oracle.subsampler import OracleSubsampler
 from supersampler_tpu_torch.compare.merge import TorchComparator
+from supersampler_tpu_torch.parallel.mesh import make_mesh
 
 _GOLD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 _FILES = [os.path.join(_GOLD, f"gfam_fam{i}.gz") for i in range(4)]
@@ -113,7 +114,8 @@ def test_score_matrix_matches_jax(query_size, chunk_groups):
     assert got[2:] == want[2:]
     gids, fids, n_groups, nb_seen, _k, _m = got
     score = TCD.score_matrix_device(gids, fids, n_groups, len(_FILES),
-                                    "cpu", chunk_groups=chunk_groups)
+                                    make_mesh(["cpu"]),
+                                    chunk_groups=chunk_groups)
     ref = JCD.score_matrix_device(gids, fids, n_groups, len(_FILES),
                                   mesh=None, chunk_groups=chunk_groups)
     assert score.dtype == np.int64 and np.array_equal(score, ref)
@@ -133,8 +135,8 @@ def test_score_matrix_seeded_matches_jax(n_files):
     pres = rng.random((9000, n_files)) < rng.random(n_files)
     pres[:, 0] |= ~pres.any(1)
     gids, fids = (x.astype(np.int32) for x in np.nonzero(pres))
-    score = TCD.score_matrix_device(gids, fids, 9000, n_files, "cpu",
-                                    chunk_groups=512)
+    score = TCD.score_matrix_device(gids, fids, 9000, n_files,
+                                    make_mesh(["cpu"]), chunk_groups=512)
     ref = JCD.score_matrix_device(gids, fids, 9000, n_files, mesh=None,
                                   chunk_groups=512)
     assert np.array_equal(score, ref)
@@ -193,14 +195,15 @@ def test_comparator_defaults_to_device_engine(monkeypatch, torch_device):
     if torch_device is None:
         monkeypatch.delenv("TORCH_DEVICE", raising=False)
         if torch.cuda.is_available():
-            assert TorchComparator().device.type == "cuda"
+            assert TorchComparator().mesh.devices[0].type == "cuda"
         else:
             with pytest.raises(RuntimeError):
                 TorchComparator()
         return
     monkeypatch.setenv("TORCH_DEVICE", torch_device)
     c = TorchComparator()
-    assert c.engine == "device" and c.device.type == torch_device
+    assert c.engine == "device"
+    assert c.mesh.devices == (torch.device(torch_device),)
     c.files_names = list(_FILES)
     c.compare_sketches(len(_FILES))
     _same_result(c, _run(TpuComparator, _FILES, len(_FILES)))

@@ -23,6 +23,7 @@ from supersampler_tpu_torch.ops import fused as FU
 from supersampler_tpu_torch.ops.minimizer import pack_2bit
 from supersampler_tpu_torch.ops.scan_kernel import scan_kernel, scan_plain
 from supersampler_tpu_torch.parallel import compare_dist as CD
+from supersampler_tpu_torch.parallel import mesh as ME
 from supersampler_tpu_torch.sketch import TorchSubsampler
 
 pytestmark = pytest.mark.cuda
@@ -266,11 +267,107 @@ def test_score_matrix_on_cuda_equals_cpu(cuda, n_files, chunk_groups):
     pres[:, 0] |= ~pres.any(1)
     gids, fids = (x.astype(np.int32) for x in np.nonzero(pres))
     CD.presence_product.launches = 0
-    got = CD.score_matrix_device(gids, fids, 10000, n_files, cuda,
+    got = CD.score_matrix_device(gids, fids, 10000, n_files,
+                                 ME.make_mesh([cuda]),
                                  chunk_groups=chunk_groups)
     assert CD.presence_product.launches == (3 if chunk_groups == 512 else 1)
-    want = CD.score_matrix_device(gids, fids, 10000, n_files, "cpu",
+    want = CD.score_matrix_device(gids, fids, 10000, n_files,
+                                  ME.make_mesh(["cpu"]),
                                   chunk_groups=chunk_groups)
     assert got.dtype == np.int64 and np.array_equal(got, want)
     assert np.array_equal(got, pres.T.astype(np.int64)
                           @ pres.astype(np.int64))
+
+
+@pytest.mark.parametrize("s", [1.0, 1000.0])
+def test_kernels_on_a_card_that_is_not_current(cuda, s):
+    """Each wrapper makes its tensors' card current for the launch: the
+    scan, scan2, lane and col sweeps and walk on the last card, with
+    cuda:0 current, equal their plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    other = torch.device("cuda", torch.cuda.device_count() - 1)
+    with torch.cuda.device(0):
+        test_scan_kernel_equals_plain(other, 31, 11)
+        test_scan2_kernel_equals_plain(other, 31, 11)
+        test_col_sweep_and_fused_equal_plain_and_v1(other, s)
+        test_walk_kernel_equals_plain(other, s)
+        assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("n_entries", [1, 2, 4, "every card"])
+def test_sharded_resolve_on_cuda_equals_one_device(cuda, monkeypatch,
+                                                   n_entries, fused):
+    """The sharded field resolve over a mesh naming cuda:0 n_entries
+    times, or over make_mesh() (every card), equals one
+    scan_resolve_batch of the whole batch on the current card, record
+    for record, on v1 and v2; every shard launches the scan (v2: scan2)
+    and sweep kernels."""
+    if fused:
+        monkeypatch.setenv("SPSP_FUSED", "1")
+    k, m, P_rec, cap, B = 31, 11, 2048, 1 << 14, 64
+    thr = compute_threshold(k, m, 100.0)
+    thr = (thr >> 32, thr & 0xFFFFFFFF)
+    mesh = ME.make_mesh(None if n_entries == "every card"
+                        else ["cuda:0"] * n_entries)
+    rng = np.random.default_rng(mesh.size)
+    lengths = rng.integers(1000, 1900, B).astype(np.int32)
+    codes = rng.integers(0, 4, (B, P_rec), dtype=np.uint8)
+    codes[np.arange(P_rec) >= lengths[:, None]] = 0
+    packed = pack_2bit(torch.from_numpy(codes)).reshape(B, -1)
+    lengths = torch.from_numpy(lengths)
+    scan = FU.scan2_kernel if fused else scan_kernel
+    counts = []
+
+    def counted(*args):
+        before = (scan.launches, TF.sweep_kernel.launches)
+        out = TF.scan_resolve_batch(*args)
+        counts.append((scan.launches - before[0],
+                       TF.sweep_kernel.launches - before[1]))
+        return out
+
+    monkeypatch.setattr(ME, "scan_resolve_batch", counted)
+    rows = ME.sharded_field_resolve_fn(mesh, k, m, P_rec, cap)(
+        packed, lengths, *thr)
+    assert len(counts) == mesh.size and all(a > 0 and b > 0
+                                            for a, b in counts)
+    whole = TF.scan_resolve_batch(packed.to(cuda), k, m, P_rec, cap,
+                                  lengths.to(cuda), *thr).cpu().numpy()
+    g, _n, want, st = TF.parse_batched_array(whole, cap, B)
+    assert g == 0 and want is not None
+    got = []
+    for row in rows:
+        g, _n, comps, _st = TF.parse_batched_array(row, cap, B // mesh.size)
+        assert g == 0
+        got.extend(comps)
+    for b in range(B):
+        for x, y in zip(got[b], want[b], strict=True):
+            assert np.array_equal(np.asarray(x), np.asarray(y)), b
+
+
+@pytest.mark.parametrize("n_files", [1, 17, 130])
+def test_mesh_score_matrix_on_cuda_equals_cpu(cuda, n_files):
+    """score_matrix_device over a 4-entry mesh on the card (one block
+    and one total per entry, all on cuda:0) equals one CPU device."""
+    rng = np.random.default_rng(n_files)
+    pres = rng.random((20000, n_files)) < rng.random(n_files)
+    pres[:, 0] |= ~pres.any(1)
+    gids, fids = (x.astype(np.int32) for x in np.nonzero(pres))
+    CD.presence_product.launches = 0
+    got = CD.score_matrix_device(gids, fids, 20000, n_files,
+                                 ME.make_mesh(["cuda:0"] * 4),
+                                 chunk_groups=512)
+    # 20,000 groups in slices of 4,096: 5 slices, 2 steps of 4 entries
+    assert CD.presence_product.launches == 8
+    want = CD.score_matrix_device(gids, fids, 20000, n_files,
+                                  ME.make_mesh(["cpu"]))
+    assert got.dtype == np.int64 and np.array_equal(got, want)
+
+
+def test_dryrun_multichip_on_every_card(cuda):
+    """dryrun_multichip over make_mesh(): one shard on each visible
+    card."""
+    from supersampler_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    dryrun_multichip(torch.cuda.device_count())

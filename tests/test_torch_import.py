@@ -1,8 +1,10 @@
 """The PyTorch port imports no JAX and nothing of supersampler_tpu.
 
 A fresh interpreter imports every module of supersampler_tpu_torch,
-sketches a small FASTA on the CPU and runs the sub_sampler CLI and the
-comparator CLI over the family goldens; ``jax`` and
+sketches a small FASTA on the CPU, runs the sub_sampler CLI and the
+comparator CLI over the family goldens and the multi-device dry run
+(parallel/dryrun.py, with parallel/mesh.py and parallel/dist.py) over
+two CPU entries; ``jax`` and
 ``supersampler_tpu`` / ``supersampler_tpu.*`` are then still absent
 from sys.modules. The port's copies of the host layer are held to their
 JAX-package originals."""
@@ -57,6 +59,9 @@ with tempfile.TemporaryDirectory() as tmp:
         rc = comparator.main(["-f", "fof.txt"])
     assert rc == 0 and "I found 4 documents" in out.getvalue()
     assert os.path.getsize("results_jaccard.csv.gz") > 0
+from supersampler_tpu_torch.parallel import dist, dryrun, mesh
+dryrun.dryrun_multichip(2, devices=["cpu"] * 2)
+assert dist.process_info() == (0, 1) and mesh.make_mesh(["cpu"]).size == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "supersampler_tpu"))
 print("MODULES", len(names), "FORBIDDEN", bad)
