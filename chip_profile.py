@@ -3,14 +3,20 @@
 
     python3 chip_profile.py [--seed N] [--runs 3] [--device cuda] [--fused]
 
-Sketches the two bench cells of chip_smoke.py (8 x 4,194,000 bp genome
-records and 10,000 x 1 kb reads, k=31, m=11, s=1000, random sequence
-from --seed) with ``TorchSubsampler.sketch_file``: one warm-up run, then
---runs runs with a wall timer around each layer (parse, prep, device,
-assemble, serialize), then one run under ``torch.profiler`` that lists
-the device events by summed time and the device's busy share of the
-profiled wall. The device layer's timer includes the fetch, which waits
-for the device. --fused sets SPSP_FUSED=1, so the single and batch
+Three cells at k=31, m=11, s=1000, random sequence from --seed: the two
+bench cells of chip_smoke.py (one file of 8 x 4,194,000 bp genome
+records, one of 10,000 x 1 kb reads), each through
+``TorchSubsampler.sketch_file``, and a fof cell, the 8 genome records
+as 8 files through ``sketch_fof`` (the sub_sampler -f path). Each cell
+has one warm-up run, then --runs runs that print the wall and the
+pipeline's own phase timers (``supersampler_tpu_torch.utils.profiling.
+timers``: parse, prep, dispatch, device+fetch, assemble, serialize),
+then one run under ``torch.profiler`` that lists the device events by
+summed time and the device's busy share of the profiled wall. The
+stages run on their own threads (reader, prep pool, device thread,
+caller) and overlap, so the phases may sum to more than the wall;
+device+fetch is the device thread's wait for results, which includes
+the device's work. --fused sets SPSP_FUSED=1, so the single and batch
 routes take the v2 path (ops/fused.py; CUDA only). Smaller corpora
 (--n-rec, --glen, --n-reads) and --device cpu check the script itself
 without a card.
@@ -30,48 +36,8 @@ import torch
 
 from chip_smoke import K, M, S, TILE_L, gpu_line, write_fasta
 
-# layer -> the methods whose wall time it sums
-_LAYERS = {
-    "prep": [("TorchSubsampler", "_prep_chunk")],
-    "device": [("TorchSubsampler", "_resolve_group"),
-               ("TorchSubsampler", "_single"), ("FieldChain", "compact")],
-    "assemble": [("TorchSubsampler", "_ingest_run"),
-                 ("TorchSubsampler", "_assemble_compact")],
-    "serialize": [("TorchSubsampler", "serialize")],
-}
-
-
-def instrument(pipeline, acc):
-    """Wrap the pipeline's layer methods and its FASTA stream with wall
-    timers that add into acc[layer]."""
-    def timed(fn, layer):
-        def wrap(*a, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                acc[layer] += time.perf_counter() - t0
-        return wrap
-
-    for layer, targets in _LAYERS.items():
-        for cls, name in targets:
-            c = getattr(pipeline, cls)
-            setattr(c, name, timed(getattr(c, name), layer))
-    stream = pipeline.stream_fasta_spans
-
-    def timed_stream(*a, **kw):
-        it = stream(*a, **kw)
-        while True:
-            t0 = time.perf_counter()
-            try:
-                item = next(it)
-            except StopIteration:
-                return
-            finally:
-                acc["parse"] += time.perf_counter() - t0
-            yield item
-
-    pipeline.stream_fasta_spans = timed_stream
+_PHASES = ("parse", "prep", "dispatch", "device+fetch", "assemble",
+           "serialize")
 
 
 def device_events(prof):
@@ -96,22 +62,29 @@ def device_events(prof):
     return sorted(rows.items(), key=lambda kv: -kv[1][0]), busy
 
 
-def profile_cell(path, bases, device, runs, acc):
-    from supersampler_tpu_torch.sketch import TorchSubsampler
+def profile_cell(name, paths, bases, device, runs):
+    """One cell: sketch_file of paths[0], or sketch_fof of every path
+    when there are several."""
+    from supersampler_tpu_torch.sketch import TorchSubsampler, sketch_fof
+    from supersampler_tpu_torch.utils.profiling import timers
 
     def once():
+        sss = [TorchSubsampler(k=K, m=M, s=S, device=device) for _ in paths]
         t0 = time.perf_counter()
-        TorchSubsampler(k=K, m=M, s=S, device=device).sketch_file(path)
+        if len(paths) == 1:
+            sss[0].sketch_file(paths[0])
+        else:
+            sketch_fof(list(zip(sss, paths)))
         if device.type == "cuda":
             torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    name = os.path.basename(path)
     once()
     for r in range(runs):
-        acc.clear()
+        timers.reset()
         wall = once()
-        layers = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in acc.items())
+        layers = ", ".join(
+            f"{p} {timers.totals.get(p, 0.0) * 1e3:.1f} ms" for p in _PHASES)
         print(f"{name} run {r}: wall {wall:.4f} s, "
               f"{bases / 1e6 / wall:.1f} Mbases/s; {layers}", flush=True)
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -128,7 +101,8 @@ def profile_cell(path, bases, device, runs, acc):
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(
+        description=__doc__.split("\n\n")[2].replace("\n", " "))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--device", default="cuda")
@@ -148,21 +122,24 @@ def main(argv=None) -> int:
             return 2
         print(f"{gpu_line()}; path {'v2' if args.fused else 'v1'}",
               flush=True)
-    from supersampler_tpu_torch.sketch import pipeline
-
-    acc = defaultdict(float)
-    instrument(pipeline, acc)
     rng = np.random.default_rng(args.seed)
     with tempfile.TemporaryDirectory() as tmp:
-        cells = []
-        for name, rows, n in (("genome.fa", args.n_rec, args.glen),
-                              ("reads.fa", args.n_reads, 1000)):
-            path = os.path.join(tmp, name)
-            bases = write_fasta(
-                path, rng.integers(0, 4, (rows, n), dtype=np.uint8), b"r")
-            cells.append((path, bases))
-        for path, bases in cells:
-            profile_cell(path, bases, device, args.runs, acc)
+        genome_rows = rng.integers(0, 4, (args.n_rec, args.glen),
+                                   dtype=np.uint8)
+        genome = os.path.join(tmp, "genome.fa")
+        g_bases = write_fasta(genome, genome_rows, b"r")
+        reads = os.path.join(tmp, "reads.fa")
+        r_bases = write_fasta(reads, rng.integers(
+            0, 4, (args.n_reads, 1000), dtype=np.uint8), b"r")
+        fof = []
+        for i, row in enumerate(genome_rows):
+            fof.append(os.path.join(tmp, f"genome{i}.fa"))
+            write_fasta(fof[-1], [row], b"r")
+        for name, paths, bases in (("genome.fa", [genome], g_bases),
+                                   ("reads.fa", [reads], r_bases),
+                                   (f"fof of {len(fof)} genome files", fof,
+                                    g_bases)):
+            profile_cell(name, paths, bases, device, args.runs)
     return 0
 
 

@@ -72,14 +72,27 @@ Phases, each printing its result; any failure exits non-zero:
      step); two gloo processes on the card (tests/torch_dist_worker.py)
      comparing those sketches (CSVs byte-equal to the CLI's) and
      sketching 8 of the genomes (bytes equal to phase 5's); the dry run
-     over every card and over cuda:0 listed four times.
+     over every card and over cuda:0 listed four times;
+  7. sketch_fof (the sub_sampler -f path) over a fof of 8 genomes of
+     4,194,000 bp, 2 read sets of 10,000 x 1 kb, 200 viral-size files
+     of 30 kb, a file of the prep faults' input (empty records next to
+     headers ahead of short and long records, N/R/Y runs, lowercase,
+     CB/TU/GF/A@ pairs) and a missing entry in the middle, at k=31,
+     m=11, s=1000: every sketch equals its file's own sketch_file and
+     the -f CLI's output (out-fof in fof order, the missing entry
+     reported and skipped); the fault file and 8 viral files also equal
+     the CPU path's, v2's and the legacy engine's. Prints the first
+     pass's wall and launches, then warm walls of the fof and of the
+     per-file sketch_file calls in turns, the phase timers' report
+     (utils/profiling.py) of the last fof pass and each run's launches.
 After the phases no supersampler_tpu module may have been imported.
 The line before the last is the kernel table, each kernel with its
 time, its plain version's time and its bound (the larger of the bytes
 it must move over the HBM rate and its 32-bit ALU operations over the
 card's scalar peak), the scans also with the batch's time and bound and
 their time on the tile of repeats, the launches of one sharded call
-of phase 6's batch over four entries (mesh_launches), the sweeps (sweep 1
+of phase 6's batch over four entries (mesh_launches), the launches in
+phase 7's runs (fof_launches), the sweeps (sweep 1
 of the tile resolve) also with the sum over the resolve's five sweeps
 and their bounds and the batch's times; the last line is
 {"ok": true, "device": {...}}.
@@ -98,7 +111,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager, redirect_stdout
+from contextlib import contextmanager, nullcontext, redirect_stdout
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -936,13 +949,13 @@ def phase_desert(rng, device, workdir, **sizes) -> None:
         f"({len(out['cpu'])} B)")
 
 
-def check_sketch(raw: bytes) -> None:
+def check_sketch(raw: bytes, empty_ok: bool = False) -> None:
     """A sketch starts '<2k-m> <m> <selected k-mers> <s>' and has
-    buckets after it."""
+    buckets after it (empty_ok: a short input may select none)."""
     head, _, body = raw.partition(b"\n")
     f = head.split()
     if (len(f) != 4 or int(f[0]) != 2 * K - M or int(f[1]) != M
-            or int(f[2]) <= 0 or not body):
+            or (not empty_ok and (int(f[2]) <= 0 or not body))):
         raise AssertionError(f"malformed sketch header {head[:80]!r}")
 
 
@@ -1392,10 +1405,12 @@ def phase_mesh_resolve(rng, device, n_rec=4096, P_rec=2048,
     from supersampler_tpu_torch.ops.minimizer import pack_2bit
     from supersampler_tpu_torch.parallel.mesh import sharded_field_resolve_fn
     from supersampler_tpu_torch.sketch import TorchSubsampler
+    from supersampler_tpu_torch.sketch.pipeline import _SharedSketchRun
 
     dev = torch.device(device)
     ss = TorchSubsampler(K, M, S, device=dev)
-    cap = ss._short_cap(n_rec * P_rec)      # the reads route's list cap
+    # the reads route's list cap at a run's first batch
+    cap = _SharedSketchRun([(ss, None)])._short_cap(n_rec * P_rec)
     lengths = rng.integers(1000, 1901, n_rec).astype(np.int32)
     codes = rng.integers(0, 4, (n_rec, P_rec), dtype=np.uint8)
     codes[np.arange(P_rec) >= lengths[:, None]] = 0
@@ -1627,6 +1642,202 @@ def phase_dryrun(device) -> None:
         f"[{gpu_line()}]")
 
 
+def fault_fasta(rng, path) -> int:
+    """The input of the three prep faults: empty records next to
+    headers, ahead of short (300 bp) and long (70 kb and 150 kb, over
+    the short batch's limit) records; N, R and Y runs; lowercase
+    stretches; and CB, TU, GF and A@ pairs among the bases. Returns the
+    records' sequence characters."""
+    def bases(n):
+        b = _ACGT[rng.integers(0, 4, n, dtype=np.uint8)].copy()
+        for _ in range(n // 2000 + 1):
+            a = int(rng.integers(0, max(n - 60, 1)))
+            b[a : a + int(rng.integers(1, 60))] = ord(rng.choice(list("NRY")))
+            a = int(rng.integers(0, max(n - 500, 1)))
+            b[a : a + 500] |= 0x20
+        for pair in (b"CB", b"TU", b"GF", b"A@") * (n // 4000 + 1):
+            a = int(rng.integers(0, max(n - 2, 1)))
+            b[a : a + 2] = np.frombuffer(pair, np.uint8)
+        return b.tobytes()
+
+    def lines(seq, width=61):
+        return b"".join(seq[j : j + width] + b"\n"
+                        for j in range(0, len(seq), width))
+
+    recs = [bases(n) for n in (300, 70_000, 150_000, 800)]
+    text = (b">e0\n>e1\n" + lines(recs[0]) + b">e2\n>e3\n"
+            + lines(recs[1]) + b">e4\n>e5\n>e6\n" + lines(recs[2])
+            + b">e7\n" + lines(recs[3]) + b">e8\n>e9\n")
+    with open(path, "wb") as f:
+        f.write(text)
+    return sum(len(r) for r in recs)
+
+
+def fof_corpus(rng, workdir, n_genomes=8, glen=TILE_L, n_readsets=2,
+               n_reads=10_000, n_viral=200, vlen=30_000):
+    """Phase 7's corpus: n_genomes one-record genomes (one 4 Mbp tile
+    each), n_readsets read sets of n_reads x 1 kb (the batch route),
+    n_viral one-record files of vlen (one short batch a file), the
+    fault file, and a missing entry in the middle. Returns (entries,
+    bases, index of the missing entry, index of the fault file)."""
+    d = os.path.join(workdir, "fof")
+    os.makedirs(d)
+    entries, bases = [], 0
+    for i in range(n_genomes):
+        entries.append(os.path.join(d, f"genome{i}.fa"))
+        bases += write_fasta(entries[-1], [rng.integers(
+            0, 4, glen, dtype=np.uint8)], b"chr", width=80)
+    for i in range(n_readsets):
+        entries.append(os.path.join(d, f"reads{i}.fa"))
+        bases += write_fasta(entries[-1], rng.integers(
+            0, 4, (n_reads, 1000), dtype=np.uint8), b"q")
+    for i in range(n_viral):
+        entries.append(os.path.join(d, f"viral{i}.fa"))
+        bases += write_fasta(entries[-1], [rng.integers(
+            0, 4, vlen, dtype=np.uint8)], b"v", width=70)
+    fault = len(entries)
+    entries.append(os.path.join(d, "faults.fa"))
+    bases += fault_fasta(rng, entries[-1])
+    missing = len(entries) // 2
+    entries.insert(missing, os.path.join(d, "missing.fa"))
+    if missing <= fault:
+        fault += 1
+    return entries, bases, missing, fault
+
+
+def sketch_entries(entries, device, engine="field"):
+    """sketch_fof over entries (one subsampler each, logs kept apart).
+    Returns (results, logs, wall s, launches)."""
+    from supersampler_tpu_torch.sketch import TorchSubsampler, sketch_fof
+
+    sss = []
+    for _ in entries:
+        ss = TorchSubsampler(k=K, m=M, s=S, device=device)
+        ss.scan_engine = engine
+        ss.log = io.StringIO()
+        sss.append(ss)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = sketch_fof(list(zip(sss, entries)))
+    wall = time.perf_counter() - t0
+    return out, [ss.log.getvalue() for ss in sss], wall, read_launches()
+
+
+def phase_fof(rng, device, workdir, **sizes) -> dict:
+    """Phase 7: sketch_fof on the card over the fof corpus (fof_corpus;
+    sizes are its). Every sketch equals the file's own sketch_file on
+    the card and the -f CLI's output; the fault file and 8 of the viral
+    files also equal the CPU path's, v2's (SPSP_FUSED=1) and the legacy
+    engine's. Prints the first pass's wall and launches, then the warm
+    walls of the fof and of the per-file sketch_file calls in turns
+    (per-file, fof, fof, per-file) and the phase timers' report of the
+    last fof pass.
+    Returns {"v1": ..., "v2": ..., "legacy": ...} launch counts."""
+    from supersampler_tpu_torch.cli import sub_sampler as cli
+    from supersampler_tpu_torch.sketch import TorchSubsampler
+    from supersampler_tpu_torch.utils.profiling import timers
+
+    entries, bases, missing, fault = fof_corpus(rng, workdir, **sizes)
+    gpu = gpu_line()
+    got, logs, wall, counts = sketch_entries(entries, device)
+    if got[missing] is not None or logs[missing] != (
+            f"Problem with file opening\nCan't open file: "
+            f"{entries[missing]}\n"):
+        raise AssertionError("fof: the missing entry was not reported")
+    for i, raw in enumerate(got):
+        if i != missing:
+            check_sketch(raw, empty_ok="/viral" in entries[i])
+    if min(counts["scan"], counts["sweep"]) <= 0 or counts["scan2"]:
+        raise AssertionError(f"fof (v1): a kernel of the path never "
+                             f"launched, or the v2 scan did: {counts}")
+    log(f"  sketch_fof over {len(entries)} entries ({bases} bases), first "
+        f"pass: wall {wall:.3f} s; launches {counts} [{gpu}]")
+
+    def per_file():
+        out, walls = [], 0.0
+        for path in entries:
+            ss = TorchSubsampler(k=K, m=M, s=S, device=device)
+            ss.log = io.StringIO()
+            t0 = time.perf_counter()
+            out.append(ss.sketch_file(path))
+            walls += time.perf_counter() - t0
+        return out, walls
+
+    # warm passes in turns: per-file, fof, fof, per-file
+    walls = {"fof": [], "per-file": []}
+    for name in ("per-file", "fof", "fof", "per-file"):
+        if name == "fof":
+            timers.reset()
+            out, _logs, w, _c = sketch_entries(entries, device)
+            report = timers.report()
+        else:
+            out, w = per_file()
+        if out != got:
+            bad = [os.path.basename(entries[i]) for i in range(len(got))
+                   if out[i] != got[i]]
+            raise AssertionError(f"{name} pass != first pass: {bad[:8]}")
+        walls[name].append(w)
+    log(f"  every sketch == its file's own sketch_file; warm walls: fof "
+        + ", ".join(f"{w:.3f}" for w in walls["fof"])
+        + f" s ({bases / 1e6 / min(walls['fof']):.1f} Mbases/s at best); "
+        "per-file sum " + ", ".join(f"{w:.3f}" for w in walls["per-file"])
+        + f" s [{gpu}]")
+    log("  phase timers of the last fof pass (summed over threads):")
+    for line in report.splitlines():
+        log(f"    {line}")
+
+    fof = os.path.join(workdir, "fof", "corpus.txt")
+    with open(fof, "w") as f:
+        f.writelines(p + "\n" for p in entries)
+    cwd = os.getcwd()
+    os.chdir(os.path.join(workdir, "fof"))
+    try:
+        t0 = time.perf_counter()
+        with redirect_stdout(io.StringIO()), \
+                env_vars(TORCH_DEVICE=str(device)):
+            rc = cli.main(["-f", fof, "-k", str(K), "-m", str(M), "-s",
+                           f"{S:g}", "-p", "f_"])
+        cli_wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    names = [os.path.basename(p).split(".")[0] for p in entries]
+    with open(os.path.join(workdir, "fof", "f_corpus.txt")) as f:
+        if rc != 0 or f.read().split() != [f"f_{n}.gz" for n in names]:
+            raise AssertionError("-f: rc or out-fof order differs")
+    for i, name in enumerate(names):
+        out = os.path.join(workdir, "fof", f"f_{name}.gz")
+        if i == missing:
+            if os.path.exists(out):
+                raise AssertionError("-f wrote a sketch of a missing entry")
+            continue
+        with open(out, "rb") as f:
+            if gzip.decompress(f.read()) != got[i]:
+                raise AssertionError(f"-f: f_{name}.gz != sketch_fof's")
+    log(f"  -f CLI over the same fof: every sketch == sketch_fof's, out-fof "
+        f"in fof order; wall {cli_wall:.3f} s [{gpu}]")
+
+    small = [entries[fault]] + [p for p in entries
+                                if "/viral" in p][:8]
+    want = [got[entries.index(p)] for p in small]
+    runs = {"v1": counts}
+    for name, dev, engine, env in (
+            ("cpu", "cpu", "field", nullcontext),
+            ("v2", device, "field", fused_env),
+            ("legacy", device, "legacy", nullcontext)):
+        with env():
+            out, _logs, w, c = sketch_entries(small, dev, engine)
+        if out != want:
+            raise AssertionError(f"fault file and 8 viral files: {name} "
+                                 f"bytes differ from the card's v1")
+        runs[name] = c
+        log(f"  fault file and 8 viral files, {name}: bytes == card v1; "
+            f"wall {w:.3f} s; launches {c}")
+    if runs["v2"]["scan2"] <= 0 or runs["legacy"]["walk"] <= 0:
+        raise AssertionError(f"v2 or legacy fof: a kernel never launched: "
+                             f"{runs}")
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1694,11 +1905,20 @@ def main(argv=None) -> int:
         phase_mesh_compare(ctx, "cuda")
         phase_dist(ctx, "cuda", tmp)
         phase_dryrun("cuda")
+        log("[7] sketch_fof on the card")
+        fof_counts = phase_fof(rng, "cuda", tmp)
     # one sharded call of the 4,096-record batch over four entries
     for key, path, name in (("scan", "v1", "scan"), ("sweep", "v1", "sweep"),
                             ("scan2", "v2", "scan2"),
                             ("sweep_col", "v2", "sweep")):
         kt[key]["mesh_launches"] = mesh_counts[path][name]
+    # launches in phase 7's runs: v1 kernels in the whole fof, v2 and the
+    # walk in the fault file and 8 viral files on v2 and the legacy engine
+    for key, path, name in (("scan", "v1", "scan"), ("sweep", "v1", "sweep"),
+                            ("scan2", "v2", "scan2"),
+                            ("sweep_col", "v2", "sweep"),
+                            ("walk", "legacy", "walk")):
+        kt[key]["fof_launches"] = fof_counts[path][name]
     for name, pre in (("tile", ""), ("1024 x 1 kb batch", "batch_")):
         s1, s2 = kt["scan"], kt["scan2"]
         log(f"  times at the {name}: scan {s1[pre + 'ms']:.4f} ms (plain "
@@ -1740,7 +1960,7 @@ def main(argv=None) -> int:
                                    "batch_ms", "batch_bound_ms",
                                    "batch_all_sweeps_ms", "repeats_ms",
                                    "ms_s1", "one_block_ms",
-                                   "mesh_launches")
+                                   "mesh_launches", "fof_launches")
                  if k in r}
         return {"name": name, "route": "cuda",
                 "source": f"supersampler_tpu_torch/csrc/{source}",

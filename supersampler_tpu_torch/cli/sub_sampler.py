@@ -8,20 +8,26 @@ plain path). Asking for CUDA where there is none raises.
 
     python -m supersampler_tpu_torch.cli.sub_sampler -i genome.fa \\
         -k 31 -m 11 -s 1000
+
+With -f, the files of the file of files share one pipeline
+(``sketch_fof``); the sketches, the out-fof and each file's messages
+come out in fof order.
 """
 
 from __future__ import annotations
 
 import io
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 from supersampler_tpu_torch import default_device
 from supersampler_tpu_torch.core.scalar import format_g6
 from supersampler_tpu_torch.io.fasta import get_out_name, read_fof
+from supersampler_tpu_torch.io.gzip_exact import write_gzip_exact
 from supersampler_tpu_torch.sketch import (TorchSubsampler, print_stat,
-                                           subsample_file)
+                                           sketch_fof, subsample_file)
 
 USAGE = """Core arguments:
 	-i Input file
@@ -79,18 +85,35 @@ def main(argv=None) -> int:
         if o["v"]:
             print_stat(ss, sys.stdout)
         return 0
-    # fof mode: the files run one after another; each file's messages
-    # and stats are buffered and printed in fof order (-t is accepted
-    # for flag parity)
+    # fof mode: one shared pipeline across the files (sketch_fof); the
+    # gzip writes overlap the remaining device work on two writer
+    # threads. Each file's messages and stats are buffered and printed
+    # in fof order. -t is accepted for flag parity; the pipeline sizes
+    # its own worker pools.
     entries = read_fof(o["f"], min_len=3)
+    bufs = [io.StringIO() for _ in entries]
+    sss = []
+    for path, buf in zip(entries, bufs):
+        print(path, file=buf)
+        ss = TorchSubsampler(k=k, m=m, s=s, abundance=o["a"], device=device)
+        ss.log = buf
+        sss.append(ss)
+    out_paths = [get_out_name(p, o["p"]) + ".gz" for p in entries]
+    for ss, out_path in zip(sss, out_paths):
+        ss.subsampled_file = out_path
+    with ThreadPoolExecutor(2) as writers:
+        wfuts = []
+
+        def write_result(idx, raw):
+            wfuts.append(writers.submit(write_gzip_exact, out_paths[idx],
+                                        raw, 9))
+
+        sketch_fof(list(zip(sss, entries)), on_result=write_result)
+        for fut in wfuts:
+            fut.result()
     with open(get_out_name(o["f"], o["p"]) + ".txt", "w") as out_fof:
-        for path in entries:
-            buf = io.StringIO()
-            print(path, file=buf)
-            ss = TorchSubsampler(k=k, m=m, s=s, abundance=o["a"],
-                                 device=device)
-            ss.log = buf
-            out_fof.write(subsample_file(ss, path, o["p"]) + "\n")
+        for out_path, ss, buf in zip(out_paths, sss, bufs):
+            out_fof.write(out_path + "\n")
             if o["v"]:
                 print_stat(ss, buf)
             sys.stdout.write(buf.getvalue())

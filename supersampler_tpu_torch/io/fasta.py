@@ -13,6 +13,8 @@ import gzip
 import io
 from typing import List
 
+from supersampler_tpu_torch.utils.profiling import phase
+
 
 def open_maybe_gzip(path: str) -> io.BufferedReader:
     """Open a file, auto-detecting gzip by magic bytes (zstr behavior,
@@ -33,16 +35,19 @@ def stream_fasta_spans(path: str, window_bytes: int = 4 << 20,
     fixed window, include/zstr.hpp:397-399 + utils.cpp:357-364).
 
     Each span is one getLineFasta record body: header line dropped,
-    newlines embedded. A block closes when its payload reaches
-    window_bytes or max_records; the partially-read tail carries into
-    the next block's buffer."""
+    newlines embedded; a header followed directly by another header
+    gives an empty span (start, start). A block closes when its payload
+    reaches window_bytes or max_records; the partially-read tail carries
+    into the next block's buffer. File reads count under
+    ``phase("parse")``."""
     with open_maybe_gzip(path) as f:
         buf = bytearray()
         eof = False
 
         def refill():
             nonlocal eof
-            chunk = f.read(window_bytes)
+            with phase("parse"):
+                chunk = f.read(window_bytes)
             if chunk:
                 buf.extend(chunk)
             else:
@@ -67,7 +72,9 @@ def stream_fasta_spans(path: str, window_bytes: int = 4 << 20,
             while True:
                 nxt = buf.find(b"\n>", sfrom)
                 if nxt >= 0:
-                    end, pos = nxt, nxt + 1
+                    # the header's own newline starts the search: a
+                    # header right after it ends the body before start
+                    end, pos = max(nxt, start), nxt + 1
                     break
                 if eof:
                     end = pos = len(buf)

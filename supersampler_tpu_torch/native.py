@@ -1,12 +1,16 @@
-"""Loader for the native host library (the repo's csrc/spsp_*.c).
+"""Loader for the native host library (csrc/spsp_*.c).
 
 The port's copy of what it uses from supersampler_tpu/native.py: the
 long-double FHS threshold, the one-pass clean + 2-bit pack of a record
 or of a chunk's records, and the C finisher (k-mer store,
-reconstruction, serialization). The shared C sources compile with the
-system C compiler into the port's own ``build/libspsp_torch_native.so``
-at first use, and again when a source is newer than the library. A
-failed build raises: there are no Python fallbacks.
+reconstruction, serialization). The threshold and the finisher come
+from the repo's shared ``csrc/spsp_native.c`` and ``csrc/spsp_finish.c``;
+the clean + pack from the port's own ``supersampler_tpu_torch/csrc/spsp_io.c``,
+whose fast path strips every non-ACGT byte as the reference does (the
+shared copy keeps a few, see that file). They compile with the system
+C compiler into the port's own ``build/libspsp_torch_native.so`` at
+first use, and again when a source is newer than the library. A failed
+build raises: there are no Python fallbacks.
 """
 
 from __future__ import annotations
@@ -18,9 +22,11 @@ import threading
 
 import numpy as np
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCES = [os.path.join(_ROOT, "csrc", f)
-            for f in ("spsp_native.c", "spsp_finish.c", "spsp_io.c")]
+_PKG = os.path.dirname(os.path.abspath(__file__))
+_ROOT = os.path.dirname(_PKG)
+_SOURCES = [os.path.join(_ROOT, "csrc", "spsp_native.c"),
+            os.path.join(_ROOT, "csrc", "spsp_finish.c"),
+            os.path.join(_PKG, "csrc", "spsp_io.c")]
 _LIB = os.path.join(_ROOT, "build", "libspsp_torch_native.so")
 
 _lock = threading.Lock()
@@ -162,7 +168,8 @@ class NativeFinisher:
 
 
 def clean_pack_native(raw_view, padded: int, halo: int = 128):
-    """One-pass clean + 2-bit pack (csrc/spsp_io.c spsp_clean_pack).
+    """One-pass clean + 2-bit pack (supersampler_tpu_torch/csrc/spsp_io.c
+    spsp_clean_pack).
 
     raw_view: np.uint8 array (a zero-copy view into the file buffer is
     fine). Returns (ref_u8_array_of_cleaned_len, packed_u8_array, o).
@@ -180,7 +187,8 @@ def clean_pack_native(raw_view, padded: int, halo: int = 128):
 def clean_pack_batch_native(data_view, starts, ends, ref_pool,
                             ref_offs, pack_pool, pack_offs, padded):
     """One C call cleaning + packing every record of a chunk
-    (csrc/spsp_io.c spsp_clean_pack_batch). Returns out_lens i64[n].
+    (supersampler_tpu_torch/csrc/spsp_io.c spsp_clean_pack_batch).
+    Returns out_lens i64[n].
     Pack rows are written at pack_pool + pack_offs[r] with padded[r]
     positions, halo 0."""
     c = np.ascontiguousarray

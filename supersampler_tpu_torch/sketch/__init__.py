@@ -1,6 +1,6 @@
 from supersampler_tpu_torch.io.fasta import get_out_name
 from supersampler_tpu_torch.io.gzip_exact import write_gzip_exact
-from supersampler_tpu_torch.sketch.pipeline import TorchSubsampler
+from supersampler_tpu_torch.sketch.pipeline import TorchSubsampler, sketch_fof
 from supersampler_tpu_torch.sketch.stats import print_stat
 
 
@@ -16,4 +16,4 @@ def subsample_file(ss, input_path: str, prefix: str) -> str:
     return out_path
 
 
-__all__ = ["TorchSubsampler", "print_stat", "subsample_file"]
+__all__ = ["TorchSubsampler", "print_stat", "sketch_fof", "subsample_file"]

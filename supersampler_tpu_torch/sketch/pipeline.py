@@ -23,13 +23,27 @@ walker.
 Each route fetches one compact array per record, tile or batch; the
 native C finisher (supersampler_tpu_torch.native, csrc/spsp_finish.c) dedups,
 reconstructs and serializes in record order, so the bytes match the
-reference. This is a plain sequential loop: dispatch, fetch, assemble.
+reference.
+
+Every sketch, of one file or of a file of files, runs through
+``sketch_fof`` (``_SharedSketchRun``): one reader thread, a
+2-worker prep pool (the C clean + pack, which releases the GIL), one
+device thread that issues all device work in file-major record order,
+and assembly on the calling thread in the same order, with a bounded
+number of chunks in flight. Its layers time themselves with
+``utils.profiling.phase``: parse, prep, dispatch, device+fetch,
+assemble and serialize.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import os
+import queue
 import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -53,6 +67,7 @@ from supersampler_tpu_torch.ops.field import (_pow2_ge, field_carry,
 from supersampler_tpu_torch.ops.minimizer import (scan_tables_2d_packed,
                                                   succ_tables)
 from supersampler_tpu_torch.ops.walker import DeviceChain
+from supersampler_tpu_torch.utils.profiling import device_trace, phase
 
 # tile geometry: sequences longer than one tile stream through fixed
 # (OWN + EXTRA)-position scans chained by a carried machine state
@@ -71,7 +86,13 @@ def padded_size(n: int, margin: int = 128) -> int:
 
 
 def _fetch(arr: torch.Tensor) -> np.ndarray:
-    return arr.cpu().numpy()
+    with phase("device+fetch"):
+        return arr.cpu().numpy()
+
+
+def _compact(dc: DeviceChain):
+    with phase("device+fetch"):
+        return dc.compact()
 
 
 def _merge_tiles(parts, own: int):
@@ -150,14 +171,16 @@ class TiledDeviceChain(_TileChain):
 
     def _tile(self, t: int, carry):
         own = self._own
-        tables = scan_tables_2d_packed(
-            self._ext(t)[32:], self._k, self._m, self._tile_p,
-            self._L - t * own, *self._thr)
-        init5, fb = carry if carry is not None else (None, None)
-        dc = DeviceChain(tables, own if self._select_all else self._guess,
-                         init5=init5, fb=fb, n_pad=own)
-        nxt = dc.carry(own) if t < self._n_tiles - 1 else None
-        return dc.compact(), dc.n_sel, nxt
+        with phase("dispatch"):
+            tables = scan_tables_2d_packed(
+                self._ext(t)[32:], self._k, self._m, self._tile_p,
+                self._L - t * own, *self._thr)
+            init5, fb = carry if carry is not None else (None, None)
+            dc = DeviceChain(tables,
+                             own if self._select_all else self._guess,
+                             init5=init5, fb=fb, n_pad=own)
+            nxt = dc.carry(own) if t < self._n_tiles - 1 else None
+        return _compact(dc), dc.n_sel, nxt
 
 
 class FieldChain(_TileChain):
@@ -173,12 +196,15 @@ class FieldChain(_TileChain):
         last = t == self._n_tiles - 1
         # non-final tiles cap last_i at own-1 (the carry handoff point)
         length_t = (self._L - t * own) if last else (own + k)
-        ft = scan_field_2d_packed(self._ext(t)[32:], k, m, P_t, length_t)
-        if entry is None:
-            entry = field_entry_init(ft, *self._thr)
+        with phase("dispatch"):
+            ft = scan_field_2d_packed(self._ext(t)[32:], k, m, P_t,
+                                      length_t)
+            if entry is None:
+                entry = field_entry_init(ft, *self._thr)
         cap = _pow2_ge(own if self._select_all else self._guess)
         while True:
-            arr = resolve_field(ft, k, m, cap, entry, *self._thr)
+            with phase("dispatch"):
+                arr = resolve_field(ft, k, m, cap, entry, *self._thr)
             a = _fetch(arr)
             if int(a[0]) != 0:
                 return self._fallback(t, ft, entry, cap)
@@ -193,17 +219,19 @@ class FieldChain(_TileChain):
         real remaining length; no second scan runs."""
         self.fallback_tiles.append(t)
         k, m, own = self._k, self._m, self._own
-        tables = succ_tables(ft[:7], (ft.init_val, ft.init_p, ft.init_h_hi,
-                                      ft.init_h_lo),
-                             k, m, self._L - t * own, *self._thr)
-        init5, fb = field_entry_to_walker_init(ft, entry)
-        dc = DeviceChain(tables, own if self._select_all else max(cap, 4096),
-                         init5=init5, fb=fb, n_pad=own)
-        nxt = None
-        if t < self._n_tiles - 1:
-            nxt = walker_exit_to_field_entry(ft, dc.scal, entry, k, m, own,
-                                             *self._thr)
-        return dc.compact(), dc.n_sel, nxt
+        with phase("dispatch"):
+            tables = succ_tables(ft[:7], (ft.init_val, ft.init_p,
+                                          ft.init_h_hi, ft.init_h_lo),
+                                 k, m, self._L - t * own, *self._thr)
+            init5, fb = field_entry_to_walker_init(ft, entry)
+            dc = DeviceChain(tables,
+                             own if self._select_all else max(cap, 4096),
+                             init5=init5, fb=fb, n_pad=own)
+            nxt = None
+            if t < self._n_tiles - 1:
+                nxt = walker_exit_to_field_entry(ft, dc.scal, entry, k, m,
+                                                 own, *self._thr)
+        return _compact(dc), dc.n_sel, nxt
 
 
 class SubsamplerState:
@@ -257,8 +285,6 @@ class TorchSubsampler(SubsamplerState):
     # fallback; "legacy": every record through successor tables and the
     # walker (pipeline.py:504-508). Both give the same bytes.
     scan_engine = "field"
-    _CHUNK_BYTES = 4 << 20
-    _CHUNK_RECS = 4096
 
     def __init__(self, k: int = 31, m: int = 11, s: float = 1000.0,
                  abundance: int = 1, device="cuda"):
@@ -280,23 +306,19 @@ class TorchSubsampler(SubsamplerState):
         own = self._tile_own
         return own, max(1, -(-(n_raw - self.k) // own))
 
-    def _short_cap(self, positions: int) -> int:
-        if self.s <= 1:
-            return _pow2_ge(positions)
-        return _pow2_ge(max(4096, int(self._batch_sel_rate * positions * 2)))
-
-    # ---- per chunk ----
+    # ---- per chunk (prep pool) ----
     def _prep_chunk(self, data: bytes, spans):
         """Clean + 2-bit pack every record of a chunk: one C call per
         short-record size group, one per longer record. Returns
         (routes, groups) with routes[i] one of ("skip",),
         ("grp", group, slot) or (engine, ref, slab, L, own, n_tiles),
-        engine "field" or "legacy"."""
+        engine "field" or "legacy". A span that ends before it starts
+        is an empty record."""
         k = self.k
         routes = [None] * len(spans)
         bygroup = {}          # own -> [(rec_idx, start, end)]
         for i, (s, e) in enumerate(spans):
-            n_raw = e - s
+            n_raw = max(e - s, 0)
             if self.scan_engine == "legacy":
                 routes[i] = self._prep_legacy(
                     np.frombuffer(data, np.uint8, n_raw, s))
@@ -324,7 +346,8 @@ class TorchSubsampler(SubsamplerState):
             R = len(members)
             R_pad = _pow2_ge(max(R, 8))
             starts = np.fromiter((s for _, s, _ in members), np.int64, R)
-            ends = np.fromiter((e for _, _, e in members), np.int64, R)
+            ends = np.maximum(
+                np.fromiter((e for _, _, e in members), np.int64, R), starts)
             ref_offs = np.zeros(R + 1, np.int64)
             np.cumsum(ends - starts, out=ref_offs[1:])
             ref_pool = np.empty(max(int(ref_offs[-1]), 1), np.uint8)
@@ -363,35 +386,12 @@ class TorchSubsampler(SubsamplerState):
         return ("legacy", ref, slab[: (128 + n_tiles * own + extra) >> 2],
                 L, own, n_tiles)
 
-    def _resolve_group(self, g) -> None:
-        """Scan + resolve one short-record batch (re-dispatched with a
-        bigger capacity while its lists are truncated) into heads and
-        record-major event arrays."""
-        own = g["own"]
-        B_n = g["lengths"].size
-        positions = B_n * own
-        packed = torch.from_numpy(g["pack"]).to(self.device)
-        lengths = torch.from_numpy(g["lengths"]).to(self.device)
-        cap = self._short_cap(positions)
-        while True:
-            a = _fetch(scan_resolve_batch(packed, self.k, self.m, own, cap,
-                                          lengths, *self._thr))
-            gst, n_total, heads, pos, last, val, rev = \
-                parse_batched_heads(a, cap, B_n)
-            if pos is not None:
-                break
-            cap = _pow2_ge(n_total)
-        g.update(heads=heads, pos=pos, last=last, val=val, rev=rev)
-        g["span_offs"] = np.zeros(B_n + 1, np.int64)
-        np.cumsum(heads[:, 1], out=g["span_offs"][1:])
-        if self.s > 1:
-            self._batch_sel_rate = max(n_total / positions, 1e-6)
-
+    # ---- host assembly of a short batch (calling thread) ----
     def _ingest_run(self, g, a: int, b: int) -> None:
         """Assemble group g's slots [a, b) in record order: a record the
-        batch resolve left unresolved goes through the walker on its
-        own, in its place (pipeline.py:1359-1375); the records between
-        go in resolved runs."""
+        batch resolve left unresolved takes its walker result (the
+        device thread's, in g["fb"]) in its place (pipeline.py:
+        1359-1375); the records between go in resolved runs."""
         for j in (a + np.flatnonzero(g["heads"][a:b, 0])).tolist():
             if j > a:
                 self._ingest_resolved(g, a, j)
@@ -401,15 +401,11 @@ class TorchSubsampler(SubsamplerState):
             self._ingest_resolved(g, a, b)
 
     def _ingest_fallback(self, g, j: int) -> None:
-        """Group g's slot j through the exact engine at the group's
-        padded size."""
+        """Group g's slot j from its walk at the group's padded size."""
         L = int(g["ref_lens"][j])
         o = int(g["ref_offs"][j])
         self.read_kmer += L - self.k + 1
-        self.fallbacks["batch"] += 1
-        comp, n_sel = self._walk_single(g["pack"][j], g["own"], L)
-        self._sel_cap_guess = max(4096, 2 * n_sel)
-        self._assemble_compact(g["ref_pool"][o : o + L], *comp)
+        self._assemble_compact(g["ref_pool"][o : o + L], *g["fb"][j])
 
     def _ingest_resolved(self, g, a: int, b: int) -> None:
         """Assemble resolved slots [a, b) of group g: one vectorized
@@ -433,99 +429,11 @@ class TorchSubsampler(SubsamplerState):
             o[a : b + 1] - s0, tail_last, heads[:, 4].view(np.uint32),
             heads[:, 5].astype(np.uint8))
 
-    def _single(self, slab: np.ndarray, L: int, own: int):
-        """Compact 9-tuple and n_sel of a single-tile record; an
-        unresolved one goes through a one-tile TiledDeviceChain
-        (pipeline.py:1404-1411)."""
-        cap = _pow2_ge(max(own if self.s <= 1 else self._sel_cap_guess,
-                           4096))
-        dev_slab = torch.from_numpy(slab).to(self.device)
-        while True:
-            a = _fetch(scan_resolve_single(
-                dev_slab, self.k, self.m, own + self._tile_extra, cap, L,
-                *self._thr))
-            if int(a[0]) != 0:
-                self.fallbacks["single"] += 1
-                return self._chain(TiledDeviceChain, slab, 1, L, own,
-                                   max(4096, cap))
-            if int(a[1]) <= cap:
-                _st, comp, n_sel = parse_field_array(a, cap)
-                return comp, n_sel
-            cap = _pow2_ge(int(a[1]))
-
-    def _chain(self, cls, slab, n_tiles: int, L: int, own: int,
-               guess: int | None = None):
-        """Compact 9-tuple and n_sel of a FieldChain or TiledDeviceChain
-        over the record's slab."""
-        chain = cls(slab, n_tiles, self.k, self.m, L, self.threshold, own,
-                    self._tile_extra, guess or self._sel_cap_guess,
-                    self.s <= 1, self.device)
-        comp = chain.compact()
-        self.fallbacks["tile"] += len(chain.fallback_tiles)
-        return comp, chain.n_sel
-
-    def _walk_single(self, packed: np.ndarray, P: int, L: int):
-        """Compact 9-tuple and n_sel of a record through the exact engine
-        as one walk over P positions (_scan_chain_packed,
-        pipeline.py:59-70). packed: P / 4 bytes, no halo."""
-        t = scan_tables_2d_packed(torch.from_numpy(packed).to(self.device),
-                                  self.k, self.m, P, L, *self._thr)
-        dc = DeviceChain(t, P if self.s <= 1 else self._sel_cap_guess)
-        return dc.compact(), dc.n_sel
-
-    def _sketch_chunk(self, data: bytes, spans) -> None:
-        routes, groups = self._prep_chunk(data, spans)
-        for g in groups:
-            self._resolve_group(g)
-        k = self.k
-        run = None            # (group, slot_a, slot_b)
-        for i, p in enumerate(routes):
-            if p[0] == "grp":
-                g, slot = p[1], p[2]
-                if run is not None and run[0] is g and run[2] == slot:
-                    run = (g, run[1], slot + 1)
-                    continue
-                if run is not None:
-                    self._ingest_run(*run)
-                run = (g, slot, slot + 1)
-                continue
-            if run is not None:
-                self._ingest_run(*run)
-                run = None
-            if p[0] == "skip":
-                continue
-            engine, ref, slab, L, own, n_tiles = p
-            self.read_kmer += L - k + 1
-            if engine == "legacy" and n_tiles == 1:
-                comp, n_sel = self._walk_single(
-                    slab[32 : 32 + (own >> 2)], own, L)
-            elif engine == "legacy":
-                comp, n_sel = self._chain(TiledDeviceChain, slab, n_tiles,
-                                          L, own)
-            elif n_tiles > 1:
-                comp, n_sel = self._chain(FieldChain, slab, n_tiles, L, own)
-            else:
-                comp, n_sel = self._single(slab, L, own)
-            self._sel_cap_guess = max(4096, 2 * n_sel)
-            self._assemble_compact(ref, *comp)
-        if run is not None:
-            self._ingest_run(*run)
-
     def sketch_file(self, input_path: str):
-        """Sketch one FASTA file; returns the uncompressed sketch bytes,
-        or None (with the reference's messages) for an unreadable
-        input."""
-        if not os.path.exists(input_path):
-            log = self.log or sys.stdout
-            print("Problem with file opening", file=log)
-            print(f"Can't open file: {input_path}", file=log)
-            return None
-        for data, spans in stream_fasta_spans(
-                input_path, self._CHUNK_BYTES, self._CHUNK_RECS):
-            self._sketch_chunk(data, spans)
-        self.nb_mmer_selected = (self.nb_mmer_selected
-                                 - (self.m - 1)) & MASK64
-        return self.serialize()
+        """Sketch one FASTA file: a one-member ``sketch_fof``. Returns
+        the uncompressed sketch bytes, or None (with the reference's
+        messages) for an unreadable input."""
+        return sketch_fof([(self, input_path)])[0]
 
     # ---- host assembly (reference SubSampler.cpp:401-454) ----
     def _assemble_compact(self, ref, sel_pos, sel_last, sel_val, sel_rev,
@@ -632,3 +540,358 @@ class TorchSubsampler(SubsamplerState):
         self.actual_minimizer_number = int(c[5])
         return header + payload
 
+
+def _enter_device(device: torch.device) -> None:
+    """Make ``device`` current on the calling thread: a CUDA thread's
+    current card is its own, and the device thread issues every launch
+    of a run."""
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+
+
+class _SharedSketchRun:
+    """One sketch pipeline shared by the files of a fof (JAX
+    _SharedSketchRun, supersampler_tpu/sketch/pipeline.py:978-1562).
+
+    Stages: one reader thread streams chunks of whole records, file
+    after file, so it reads ahead across file boundaries
+    (``_prefetch_iter``, depth 2); a 2-worker prep pool cleans and
+    packs each chunk (``TorchSubsampler._prep_chunk``, C calls that
+    release the GIL); one device thread, with the run's card current,
+    issues the chunk's device work in file-major record order (short
+    batches first, then the other records) and fetches each result;
+    the calling thread assembles in the same order into each file's own
+    finisher, so bucket first-insertion order follows record order per
+    file. At most ``_IN_FLIGHT`` chunks are between read and assembly,
+    so host memory stays O(window + largest record) per chunk. A file
+    serializes as soon as its last chunk has drained, in fof order.
+
+    Invariants:
+      * every member has the same sketch parameters and device
+        (sketch_fof groups items by _shared_params_key);
+      * records of one file assemble in record order into that file's
+        finisher; files finalize in fof order;
+      * the adaptive capacities (selection guess, batch selection rate)
+        live on the run and are written back to every member at the
+        end; they size device buffers only, never the bytes.
+    """
+
+    _CHUNK_BYTES = 4 << 20
+    _CHUNK_RECS = 4096
+    _IN_FLIGHT = 4
+
+    def __init__(self, items, on_result=None):
+        self.items = list(items)            # [(ss, path)], same params
+        self.on_result = on_result          # callback(member_idx, raw)
+        ss0 = self.items[0][0]
+        self.k, self.m = ss0.k, ss0.m
+        self.threshold = ss0.threshold
+        self.thr = ss0._thr
+        self.extra = ss0._tile_extra
+        self.select_all = ss0.s <= 1
+        # the device thread's current card starts as card 0: name the
+        # caller's current card where the members say only "cuda"
+        self.device = ss0.device
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.sel_guess = ss0._sel_cap_guess
+        self.rate = ss0._batch_sel_rate
+
+    @staticmethod
+    def _prep(ss, data, spans):
+        """One chunk's clean + pack (prep pool)."""
+        with phase("prep"):
+            return ss._prep_chunk(data, spans)
+
+    # ---- device work (device thread) ----
+    def _short_cap(self, positions: int) -> int:
+        if self.select_all:
+            return _pow2_ge(positions)
+        return _pow2_ge(max(4096, int(self.rate * positions * 2)))
+
+    def _resolve_group(self, ss, g) -> None:
+        """Scan + resolve one short-record batch (re-dispatched with a
+        bigger capacity while its lists are truncated) into heads and
+        record-major event arrays; each record the resolve leaves
+        unresolved walks on its own into g["fb"][slot]."""
+        own = g["own"]
+        B_n = g["lengths"].size
+        positions = B_n * own
+        with phase("dispatch"):
+            packed = torch.from_numpy(g["pack"]).to(self.device)
+            lengths = torch.from_numpy(g["lengths"]).to(self.device)
+        cap = self._short_cap(positions)
+        while True:
+            with phase("dispatch"):
+                arr = scan_resolve_batch(packed, self.k, self.m, own, cap,
+                                         lengths, *self.thr)
+            gst, n_total, heads, pos, last, val, rev = \
+                parse_batched_heads(_fetch(arr), cap, B_n)
+            if pos is not None:
+                break
+            cap = _pow2_ge(n_total)
+        g.update(heads=heads, pos=pos, last=last, val=val, rev=rev)
+        g["span_offs"] = np.zeros(B_n + 1, np.int64)
+        np.cumsum(heads[:, 1], out=g["span_offs"][1:])
+        if not self.select_all:
+            self.rate = max(n_total / positions, 1e-6)
+        g["fb"] = {}
+        for j in np.flatnonzero(heads[:, 0]).tolist():
+            ss.fallbacks["batch"] += 1
+            comp, n_sel = self._walk_single(g["pack"][j], own,
+                                            int(g["ref_lens"][j]))
+            self.sel_guess = max(4096, 2 * n_sel)
+            g["fb"][j] = comp
+
+    def _single(self, ss, slab: np.ndarray, L: int, own: int):
+        """Compact 9-tuple and n_sel of a single-tile record; an
+        unresolved one goes through a one-tile TiledDeviceChain
+        (pipeline.py:1404-1411)."""
+        cap = _pow2_ge(max(own if self.select_all else self.sel_guess,
+                           4096))
+        with phase("dispatch"):
+            dev_slab = torch.from_numpy(slab).to(self.device)
+        while True:
+            with phase("dispatch"):
+                arr = scan_resolve_single(
+                    dev_slab, self.k, self.m, own + self.extra, cap, L,
+                    *self.thr)
+            a = _fetch(arr)
+            if int(a[0]) != 0:
+                ss.fallbacks["single"] += 1
+                return self._chain(ss, TiledDeviceChain, slab, 1, L, own,
+                                   max(4096, cap))
+            if int(a[1]) <= cap:
+                _st, comp, n_sel = parse_field_array(a, cap)
+                return comp, n_sel
+            cap = _pow2_ge(int(a[1]))
+
+    def _chain(self, ss, cls, slab, n_tiles: int, L: int, own: int,
+               guess: int | None = None):
+        """Compact 9-tuple and n_sel of a FieldChain or TiledDeviceChain
+        over the record's slab."""
+        chain = cls(slab, n_tiles, self.k, self.m, L, self.threshold, own,
+                    self.extra, guess or self.sel_guess, self.select_all,
+                    self.device)
+        comp = chain.compact()
+        ss.fallbacks["tile"] += len(chain.fallback_tiles)
+        return comp, chain.n_sel
+
+    def _walk_single(self, packed: np.ndarray, P: int, L: int):
+        """Compact 9-tuple and n_sel of a record through the exact engine
+        as one walk over P positions (_scan_chain_packed,
+        pipeline.py:59-70). packed: P / 4 bytes, no halo."""
+        with phase("dispatch"):
+            t = scan_tables_2d_packed(
+                torch.from_numpy(packed).to(self.device), self.k, self.m,
+                P, L, *self.thr)
+            dc = DeviceChain(t, P if self.select_all else self.sel_guess)
+        return _compact(dc), dc.n_sel
+
+    def _device_chunk(self, ss, prep):
+        """Every device result of one chunk, in record order: the short
+        batches, then one compact 9-tuple per other record (None for
+        "skip" and "grp" routes). Returns (routes, groups, comps)."""
+        routes, groups = prep.result()
+        for g in groups:
+            self._resolve_group(ss, g)
+        comps = [None] * len(routes)
+        for i, p in enumerate(routes):
+            if p[0] in ("skip", "grp"):
+                continue
+            engine, _ref, slab, L, own, n_tiles = p
+            if engine == "legacy" and n_tiles == 1:
+                comp, n_sel = self._walk_single(
+                    slab[32 : 32 + (own >> 2)], own, L)
+            elif engine == "legacy":
+                comp, n_sel = self._chain(ss, TiledDeviceChain, slab,
+                                          n_tiles, L, own)
+            elif n_tiles > 1:
+                comp, n_sel = self._chain(ss, FieldChain, slab, n_tiles, L,
+                                          own)
+            else:
+                comp, n_sel = self._single(ss, slab, L, own)
+            self.sel_guess = max(4096, 2 * n_sel)
+            comps[i] = comp
+        return routes, groups, comps
+
+    # ---- assembly (calling thread) ----
+    def _assemble(self, ss, routes, groups, comps) -> None:
+        """Assemble one chunk in record order into ss's finisher: runs of
+        consecutive slots of one short batch in one C ingest each, every
+        other record from its compact."""
+        k = self.k
+        with phase("assemble"):
+            run = None            # (group, slot_a, slot_b)
+            for i, p in enumerate(routes):
+                if p[0] == "grp":
+                    g, slot = p[1], p[2]
+                    if run is not None and run[0] is g and run[2] == slot:
+                        run = (g, run[1], slot + 1)
+                        continue
+                    if run is not None:
+                        ss._ingest_run(*run)
+                    run = (g, slot, slot + 1)
+                    continue
+                if run is not None:
+                    ss._ingest_run(*run)
+                    run = None
+                if p[0] == "skip":
+                    continue
+                ref, L = p[1], p[3]
+                ss.read_kmer += L - k + 1
+                ss._assemble_compact(ref, *comps[i])
+            if run is not None:
+                ss._ingest_run(*run)
+
+    def _finalize(self, fi: int, results: list) -> None:
+        ss = self.items[fi][0]
+        ss.nb_mmer_selected = (ss.nb_mmer_selected - (self.m - 1)) & MASK64
+        with phase("serialize"):
+            results[fi] = ss.serialize()
+        if self.on_result is not None:
+            self.on_result(fi, results[fi])
+
+    def _blocks(self):
+        """(file index, data, spans) of every chunk, file after file in
+        fof order; (file index, None, None) after each file's last."""
+        for fi, (_ss, path) in enumerate(self.items):
+            for data, spans in stream_fasta_spans(path, self._CHUNK_BYTES,
+                                                  self._CHUNK_RECS):
+                yield fi, data, spans
+            yield fi, None, None
+
+    def run(self) -> list:
+        """Sketch every member; returns their sketch bytes in order. An
+        error in any stage raises here."""
+        n = len(self.items)
+        results = [None] * n
+        pending = collections.deque()     # (fi, device future), in order
+        left = [0] * n                    # chunks not yet assembled
+        read = [False] * n
+        next_final = 0
+
+        def try_finalize():
+            nonlocal next_final
+            while next_final < n and read[next_final] \
+                    and left[next_final] == 0:
+                self._finalize(next_final, results)
+                next_final += 1
+
+        def drain_one():
+            fi, dfut = pending.popleft()
+            self._assemble(self.items[fi][0], *dfut.result())
+            left[fi] -= 1
+            try_finalize()
+
+        preppers = ThreadPoolExecutor(2, thread_name_prefix="spsp-prep")
+        devq = ThreadPoolExecutor(1, thread_name_prefix="spsp-device",
+                                  initializer=_enter_device,
+                                  initargs=(self.device,))
+        try:
+            with device_trace("sketch_fof"), \
+                    contextlib.closing(_prefetch_iter(self._blocks())) \
+                    as blocks:
+                for fi, data, spans in blocks:
+                    if data is None:          # the file's last chunk
+                        read[fi] = True
+                        try_finalize()
+                        continue
+                    ss = self.items[fi][0]
+                    pf = preppers.submit(self._prep, ss, data, spans)
+                    pending.append((fi, devq.submit(self._device_chunk, ss,
+                                                    pf)))
+                    left[fi] += 1
+                    if len(pending) >= self._IN_FLIGHT:
+                        drain_one()
+                while pending:
+                    drain_one()
+        finally:
+            preppers.shutdown(cancel_futures=True)
+            devq.shutdown(cancel_futures=True)
+        for ss, _path in self.items:
+            ss._sel_cap_guess = self.sel_guess
+            ss._batch_sel_rate = self.rate
+        return results
+
+
+def _prefetch_iter(gen, depth: int = 2):
+    """Run a generator on a background thread with a bounded queue, so
+    file reading overlaps prep and device work without unbounded
+    buffering. An exception in the generator raises in the consumer;
+    closing the consumer stops the thread."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def worker():
+        try:
+            for item in gen:
+                if not put(item):
+                    return
+            put(end)
+        except BaseException as e:      # handed to the consumer
+            put(e)
+        finally:
+            gen.close()
+
+    t = threading.Thread(target=worker, name="spsp-reader", daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        t.join()
+
+
+def _shared_params_key(ss):
+    return (ss.k, ss.m, ss.threshold, ss.s, ss.abundance, ss.scan_engine,
+            ss._tile_own, ss._tile_extra, ss._SHORT_MAX, str(ss.device))
+
+
+def sketch_fof(items, on_result=None):
+    """Sketch many (subsampler, fasta_path) pairs through one shared
+    pipeline per parameter set (see _SharedSketchRun). Returns the
+    sketch bytes per item, aligned with the input: None for a file that
+    cannot be opened, which prints the reference's two messages to its
+    subsampler's log. Each item needs a subsampler of its own.
+
+    on_result(idx, raw): called as each item's sketch is serialized (a
+    file finalizes as soon as its last chunk drains, in input order),
+    so output writing can overlap the remaining device work."""
+    if len({id(ss) for ss, _path in items}) < len(items):
+        raise ValueError("sketch_fof: two items share a subsampler")
+    results = [None] * len(items)
+    shared: dict = {}               # params key -> [(idx, ss, path)]
+    for idx, (ss, path) in enumerate(items):
+        if not os.path.exists(path):
+            log = ss.log or sys.stdout
+            print("Problem with file opening", file=log)
+            print(f"Can't open file: {path}", file=log)
+            continue
+        shared.setdefault(_shared_params_key(ss), []).append(
+            (idx, ss, path))
+    for members in shared.values():
+        gidx = [idx for idx, _, _ in members]
+        cb = (None if on_result is None
+              else lambda mi, raw: on_result(gidx[mi], raw))
+        outs = _SharedSketchRun([(ss, path) for _, ss, path in members],
+                                on_result=cb).run()
+        for idx, out in zip(gidx, outs):
+            results[idx] = out
+    return results

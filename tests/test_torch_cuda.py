@@ -255,6 +255,36 @@ def test_golden_sketch_on_cuda_v2(cuda, tmp_path, monkeypatch):
     assert FU.scan2_kernel.launches > 0
 
 
+def test_sketch_fof_on_cuda_equals_cpu(cuda, tmp_path):
+    """sketch_fof on the card over the family inputs, the gzipped
+    genome, a missing entry and a file of headers only: the CPU path's
+    bytes, and the card's per-file sketch_file bytes."""
+    from supersampler_tpu_torch.sketch import sketch_fof
+
+    data = _load("make_data").make_all(str(tmp_path))
+    headers = tmp_path / "headers.fa"
+    headers.write_bytes(b">a\n>b\n")
+    paths = [data["fam0"], data["big"], str(tmp_path / "missing.fa"),
+             str(headers), data["fam1"], data["fam2"], data["fam3"]]
+    out = {}
+    for dev in (cuda, "cpu"):
+        sss = [TorchSubsampler(k=31, m=11, s=15.0, device=dev)
+               for _ in paths]
+        for ss in sss:
+            ss.log = open(os.devnull, "w")
+        out[str(dev)] = sketch_fof(list(zip(sss, paths)))
+        for ss in sss:
+            ss.log.close()
+    alone = []
+    for p in paths:
+        ss = TorchSubsampler(k=31, m=11, s=15.0, device=cuda)
+        ss.log = open(os.devnull, "w")
+        alone.append(ss.sketch_file(p))
+        ss.log.close()
+    assert out[str(cuda)] == out["cpu"] == alone
+    assert out["cpu"][2] is None
+
+
 @pytest.mark.parametrize("chunk_groups", [512, 1 << 18])
 @pytest.mark.parametrize("n_files", [1, 4, 17, 64, 130])
 def test_score_matrix_on_cuda_equals_cpu(cuda, n_files, chunk_groups):

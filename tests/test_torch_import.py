@@ -1,7 +1,9 @@
 """The PyTorch port imports no JAX and nothing of supersampler_tpu.
 
 A fresh interpreter imports every module of supersampler_tpu_torch,
-sketches a small FASTA on the CPU, runs the sub_sampler CLI and the
+sketches a small FASTA on the CPU (alone and as a fof through
+sketch_fof, reading the phase timers), runs the sub_sampler CLI (-i and
+-f) and the
 comparator CLI over the family goldens and the multi-device dry run
 (parallel/dryrun.py, with parallel/mesh.py and parallel/dist.py) over
 two CPU entries; ``jax`` and
@@ -51,6 +53,17 @@ with tempfile.TemporaryDirectory() as tmp:
     with contextlib.redirect_stdout(out):
         rc = sub_sampler.main(["-i", path, "-s", "10", "-p", "cli_"])
     assert rc == 0 and os.path.getsize("cli_g.gz") > 0, out.getvalue()
+    from supersampler_tpu_torch.sketch import sketch_fof
+    from supersampler_tpu_torch.utils.profiling import timers
+    two = sketch_fof([(TorchSubsampler(k=31, m=11, s=10.0, device="cpu"), p)
+                      for p in (path, path)])
+    assert two == [raw, raw] and "assemble" in timers.report()
+    with open("sk_fof.txt", "w") as f:
+        f.write(path + "\\n")
+    with contextlib.redirect_stdout(out):
+        rc = sub_sampler.main(["-f", "sk_fof.txt", "-s", "10", "-p", "f_"])
+    assert rc == 0 and open("f_sk_fof.txt").read() == "f_g.gz\\n"
+    assert open("f_g.gz", "rb").read() == open("cli_g.gz", "rb").read()
     gold = os.path.join(REPO, "tests", "golden")
     with open("fof.txt", "w") as f:
         f.writelines(os.path.join(gold, "gfam_fam%d.gz\\n" % i)
