@@ -85,6 +85,18 @@ Phases, each printing its result; any failure exits non-zero:
      pass's wall and launches, then warm walls of the fof and of the
      per-file sketch_file calls in turns, the phase timers' report
      (utils/profiling.py) of the last fof pass and each run's launches.
+  8. device dedup and the Python store (ops/dedup.py, sketch/store.py):
+     dedup_spans on the card == on the CPU for the spans of a 4 Mbp tile
+     at s = 1000 and s = 64 and of a 100 kb record at s = 1 (card and CPU
+     times printed); sketches with device_dedup = True on the card, each
+     byte-equal to the default path's on the card: the 5 Mbp genome at
+     s = 1000 and s = 64, the desert corpus's 12 Mbp and 100 kb records
+     (tile fallbacks), the bench genome set, 2,000 reads of which 200
+     are 300-790 bp (the walk route) and the genome through the legacy
+     engine; native_finisher = False on the genome; the 10 goldens with
+     each opt-in. Each run's walls beside the default path's, its
+     launches (the scan and sweep, or the walk, of its routes must
+     launch) and its phase timers' report.
 After the phases no supersampler_tpu module may have been imported.
 The line before the last is the kernel table, each kernel with its
 time, its plain version's time and its bound (the larger of the bytes
@@ -92,7 +104,8 @@ it must move over the HBM rate and its 32-bit ALU operations over the
 card's scalar peak), the scans also with the batch's time and bound and
 their time on the tile of repeats, the launches of one sharded call
 of phase 6's batch over four entries (mesh_launches), the launches in
-phase 7's runs (fof_launches), the sweeps (sweep 1
+phase 7's runs (fof_launches) and in phase 8's device-dedup sketches
+(dedup_launches), the sweeps (sweep 1
 of the tile resolve) also with the sum over the resolve's five sweeps
 and their bounds and the batch's times; the last line is
 {"ok": true, "device": {...}}.
@@ -1838,6 +1851,200 @@ def phase_fof(rng, device, workdir, **sizes) -> dict:
     return runs
 
 
+def record_spans(ss, codes: np.ndarray):
+    """The selected spans of one record (2-bit codes) through ss's
+    default path, the tail flush included: (pos, last, val, rev) lists."""
+    comp, _ = ss._fetch_scan(ss._launch_scan(_ACGT[codes]))
+    pos, last, val, rev, n_ev, last_ev, tv, tr, ts = comp
+    spans = [list(pos), list(last), [int(v) for v in val], list(rev)]
+    if ts:
+        for col, v in zip(spans, (codes.size - K, last_ev + 1 if n_ev else 0,
+                                  tv, tr)):
+            col.append(v)
+    return spans
+
+
+def phase_dedup_spans(rng, device, tile_l=TILE_L, rec_l=100_000,
+                      timing=True) -> None:
+    """Phase 8a: ops/dedup.py dedup_spans on the card against the CPU on
+    the spans of a 4 Mbp tile like phase 2's (s = 1000 and s = 64) and
+    of a 100 kb record at s = 1 (select-all, K = own), in the halo'd
+    frame and at the sizes the path gives it: n_kmers, n_unique and the
+    rows below n_unique equal. Prints the card's and the CPU's times."""
+    from supersampler_tpu_torch.ops.dedup import _HALO_LEFT, dedup_spans
+    from supersampler_tpu_torch.ops.field import _pow2_ge
+    from supersampler_tpu_torch.sketch import TorchSubsampler
+
+    tile = rng.integers(0, 4, tile_l, dtype=np.uint8)
+    rec = rng.integers(0, 4, rec_l, dtype=np.uint8)
+    gpu = gpu_line()
+    for name, codes, s in ((f"{tile_l} bp tile, s = 1000", tile, 1000.0),
+                           (f"{tile_l} bp tile, s = 64", tile, 64.0),
+                           (f"{rec_l} bp record, s = 1", rec, 1.0)):
+        ss = TorchSubsampler(k=K, m=M, s=s, device=device)
+        route, own, n_tiles, positions = ss._scan_geometry(codes.size)
+        if (route, n_tiles) != ("field", 1):
+            raise AssertionError(f"{name}: not one field tile")
+        spans = record_spans(ss, codes)
+        n_sel = len(spans[0])
+        cap = _pow2_ge(n_sel + 1)
+        P = positions + _HALO_LEFT
+        Kcap = own if s <= 1 else _pow2_ge((n_sel + 1) * (K - M + 1))
+        ext = np.zeros(P, np.uint8)
+        ext[_HALO_LEFT : _HALO_LEFT + codes.size] = codes
+        cols = [np.full(cap, -1, np.int64) for _ in range(3)]
+        cols[2][:] = 0
+        for col, vals, shift in zip(cols, spans, (_HALO_LEFT, _HALO_LEFT,
+                                                  0)):
+            col[:n_sel] = np.asarray(vals, np.int64) + shift
+        rev = np.zeros(cap, bool)
+        rev[:n_sel] = spans[3]
+
+        def args(dev):
+            return (torch.from_numpy(ext).to(dev),
+                    (*(torch.from_numpy(c).to(dev) for c in cols),
+                     torch.from_numpy(rev).to(dev),
+                     torch.tensor(n_sel, device=dev)), K, M, P, Kcap)
+
+        dev_args, cpu_args = args(device), args("cpu")
+        got = dedup_spans(*dev_args)
+        t0 = time.perf_counter()
+        want = dedup_spans(*cpu_args)
+        cpu_s = time.perf_counter() - t0
+        n_kmers, n_unique = int(want[0]), int(want[1])
+        if (int(got[0]), int(got[1])) != (n_kmers, n_unique) or any(
+                not torch.equal(g[:n_unique].cpu(), w[:n_unique])
+                for g, w in zip(got[2:], want[2:])):
+            raise AssertionError(f"dedup_spans, {name}: card != cpu")
+        if n_kmers > Kcap or n_unique == 0:
+            raise AssertionError(f"dedup_spans, {name}: n_kmers {n_kmers} "
+                                 f"K {Kcap} n_unique {n_unique}")
+        card = (f"card {cuda_ms(lambda: dedup_spans(*dev_args), 5):.3f} ms"
+                if timing else "untimed")
+        log(f"  dedup_spans, {name} ({n_sel} spans, P {P}, K {Kcap}): card "
+            f"== cpu (n_kmers {n_kmers}, n_unique {n_unique}); {card}, cpu "
+            f"{cpu_s * 1e3:.1f} ms [{gpu}]")
+
+
+def dedup_corpus(rng, workdir, long_len=12_000_000, single_len=100_000,
+                 n_reads=2000, n_short=200):
+    """Phase 8's own inputs: the desert corpus's two long records (a
+    single_len record with a 3 kb poly-A, a long_len one with a 3 kb
+    poly-T inside tile 1) and n_reads reads, n_short of them 300-790 bp
+    (the walk route), the others 1 kb. Returns (desert path, reads path,
+    their bases)."""
+    own = TILE_P - 512
+    single = rng.integers(0, 4, single_len, dtype=np.uint8)
+    single[single_len // 2 : single_len // 2 + 3000] = 0
+    long_rec = rng.integers(0, 4, long_len, dtype=np.uint8)
+    at = own + (long_len - own) // 2
+    long_rec[at : at + 3000] = 3
+    desert = os.path.join(workdir, "desert_long.fa")
+    d_bases = write_fasta(desert, [single, long_rec], b"d", width=80)
+    lens = np.full(n_reads, 1000)
+    lens[rng.choice(n_reads, n_short, replace=False)] = rng.integers(
+        300, 791, n_short)
+    reads = os.path.join(workdir, "reads_dedup.fa")
+    r_bases = write_fasta(reads, [rng.integers(0, 4, n, dtype=np.uint8)
+                                  for n in lens], b"r")
+    return desert, reads, d_bases, r_bases
+
+
+def sketch_one(path, device, s=S, engine="field", **flags):
+    """sketch_file of one fresh subsampler on the card, the launch
+    counters and phase timers reset before and read after. Returns
+    (bytes, wall s, launches, timers' report on one line, subsampler)."""
+    from supersampler_tpu_torch.sketch import TorchSubsampler
+    from supersampler_tpu_torch.utils.profiling import timers
+
+    ss = TorchSubsampler(k=K, m=M, s=s, device=device)
+    ss.scan_engine = engine
+    for name, value in flags.items():
+        setattr(ss, name, value)
+    reset_launches()
+    timers.reset()
+    t0 = time.perf_counter()
+    raw = ss.sketch_file(path)
+    wall = time.perf_counter() - t0
+    report = "; ".join(" ".join(line.split())
+                       for line in timers.report().splitlines())
+    return raw, wall, read_launches(), report, ss
+
+
+def phase_dedup(rng, device, workdir, genome, bench_genome, **sizes) -> dict:
+    """Phase 8b-c: sketches with device_dedup = True on the card, each
+    byte-equal to the default path's sketch of the same file on the card:
+    phase 4's genome (two tiles) at s = 1000 and s = 64, the desert
+    corpus's long records (tile fallbacks), the bench genome set, reads
+    with some on the walk route (dedup_corpus; sizes are its), and the
+    genome again through the legacy engine; then native_finisher = False
+    on the genome and on the 10 goldens (golden bytes), and the goldens
+    with device dedup. Each run's launch counters must show the
+    kernels of its routes. Returns the dedup runs' launches summed."""
+    from supersampler_tpu_torch.sketch import TorchSubsampler
+
+    desert, reads, d_bases, r_bases = dedup_corpus(rng, workdir, **sizes)
+    gpu = gpu_line()
+    dd = {"device_dedup": True}
+    cells = (
+        (f"genome, s = {S:g}", genome, S, "field", dd, ("scan", "sweep")),
+        ("genome, s = 64", genome, 64.0, "field", dd, ("scan", "sweep")),
+        (f"desert long records ({d_bases} bases)", desert, S, "field", dd,
+         ("scan", "sweep", "walk")),
+        ("bench genome set", bench_genome, S, "field", dd, ("scan", "sweep")),
+        (f"reads with 300-790 bp ones ({r_bases} bases)", reads, S, "field",
+         dd, ("scan", "sweep", "walk")),
+        ("genome, legacy engine", genome, S, "legacy", dd, ("scan", "walk")),
+        ("genome, native_finisher = False", genome, S, "field",
+         {"native_finisher": False}, ("scan", "sweep")),
+    )
+    total = {name: 0 for name in read_launches()}
+    for name, path, s, engine, flags, need in cells:
+        want, w_def, _c, _r, _ss = sketch_one(path, device, s)
+        got, wall, counts, report, ss = sketch_one(path, device, s, engine,
+                                                   **flags)
+        if got != want:
+            raise AssertionError(f"{name}: {flags} bytes != default path's")
+        check_sketch(got)
+        if (min(counts[n] for n in need) <= 0 or counts["scan2"]
+                or (engine == "legacy" and counts["sweep"])):
+            raise AssertionError(f"{name}: launches {counts}, want {need}")
+        if "desert" in name and ss.fallbacks["tile"] < 2:
+            raise AssertionError(f"{name}: fallbacks {ss.fallbacks}")
+        if "device_dedup" in flags:
+            for n in total:
+                total[n] += counts[n]
+        log(f"  {name}, {flags}: bytes == default path's ({len(got)} B); "
+            f"wall {wall:.3f} s against {w_def:.3f} s; launches {counts}; "
+            f"fallbacks {ss.fallbacks}; phases: {report} [{gpu}]")
+
+    make_data = load_tests_module("make_data")
+    gold = os.path.join(ROOT, "tests", "golden")
+    data = make_data.make_all(os.path.join(workdir, "data8"))
+    with open(os.path.join(gold, "meta.json")) as f:
+        meta = json.load(f)
+    for flags in ({"native_finisher": False}, dd):
+        reset_launches()
+        t0 = time.perf_counter()
+        for cfg in meta["sketches"]:
+            with gzip.open(os.path.join(gold, cfg["file"]), "rb") as f:
+                want = f.read()
+            ss = TorchSubsampler(k=cfg["k"], m=cfg["m"],
+                                 s=float(np.float32(cfg["s"])),
+                                 abundance=cfg["a"], device=device)
+            for attr, value in flags.items():
+                setattr(ss, attr, value)
+            if ss.sketch_file(data[cfg["dataset"]]) != want:
+                raise AssertionError(f"golden {cfg['file']} differs "
+                                     f"({flags})")
+        counts = read_launches()
+        if min(counts["scan"], counts["sweep"]) <= 0:
+            raise AssertionError(f"goldens {flags}: launches {counts}")
+        log(f"  all {len(meta['sketches'])} golden sketches equal ({flags}); "
+            f"{time.perf_counter() - t0:.3f} s; launches {counts}")
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1907,6 +2114,11 @@ def main(argv=None) -> int:
         phase_dryrun("cuda")
         log("[7] sketch_fof on the card")
         fof_counts = phase_fof(rng, "cuda", tmp)
+        log("[8] device dedup and the Python store on the card")
+        phase_dedup_spans(rng, "cuda")
+        dedup_counts = phase_dedup(rng, "cuda", tmp,
+                                   os.path.join(tmp, "g5.fa"),
+                                   bench_genome[0])
     # one sharded call of the 4,096-record batch over four entries
     for key, path, name in (("scan", "v1", "scan"), ("sweep", "v1", "sweep"),
                             ("scan2", "v2", "scan2"),
@@ -1919,6 +2131,9 @@ def main(argv=None) -> int:
                             ("sweep_col", "v2", "sweep"),
                             ("walk", "legacy", "walk")):
         kt[key]["fof_launches"] = fof_counts[path][name]
+    # launches in phase 8's device-dedup sketches (v1 kernels and the walk)
+    for key in ("scan", "sweep", "walk"):
+        kt[key]["dedup_launches"] = dedup_counts[key]
     for name, pre in (("tile", ""), ("1024 x 1 kb batch", "batch_")):
         s1, s2 = kt["scan"], kt["scan2"]
         log(f"  times at the {name}: scan {s1[pre + 'ms']:.4f} ms (plain "
@@ -1960,7 +2175,8 @@ def main(argv=None) -> int:
                                    "batch_ms", "batch_bound_ms",
                                    "batch_all_sweeps_ms", "repeats_ms",
                                    "ms_s1", "one_block_ms",
-                                   "mesh_launches", "fof_launches")
+                                   "mesh_launches", "fof_launches",
+                                   "dedup_launches")
                  if k in r}
         return {"name": name, "route": "cuda",
                 "source": f"supersampler_tpu_torch/csrc/{source}",

@@ -2,8 +2,10 @@
 
 The port's copy of what it needs from supersampler_tpu/core/scalar.py:
 the XXHash64 primes and seed, the 2-bit nucleotide code, the FHS
-threshold (80-bit long double, computed by the native library) and the
-reference's number formats.
+threshold (80-bit long double, computed by the native library), the
+reference's number formats and its 2-bit blob packer, plus the two
+byte translate tables of the Python k-mer store's super-k-mer intake
+(supersampler_tpu/oracle/subsampler.py:48-52).
 """
 
 from __future__ import annotations
@@ -30,6 +32,18 @@ INT2NUC = "ACTG"
 # after clean_dna).
 NUC2INT_LUT = np.array([(c // 2) % 4 for c in range(256)], dtype=np.uint8)
 
+# bytes -> base-4 digits of the 2-bit code, and bytes -> complement (any
+# other byte complements to A), for intake on bytes
+_B4_BYTES = bytes.maketrans(b"ACTG", b"0123")
+_COMP_BYTES = bytes.maketrans(
+    bytes(range(256)),
+    bytes({65: 84, 67: 71, 71: 67, 84: 65}.get(c, 65) for c in range(256)))
+
+
+def nuc2int(c: str) -> int:
+    """(c/2)%4 on the ASCII value (reference utils.cpp:13-16)."""
+    return (ord(c) // 2) % 4
+
 
 def num2str(num: int, k: int) -> str:
     """Unpack ``k`` nucleotides (reference utils.cpp:168-183)."""
@@ -38,6 +52,33 @@ def num2str(num: int, k: int) -> str:
         out.append(INT2NUC[num & 3])
         num >>= 2
     return "".join(reversed(out))
+
+
+def str_compressor(s: str) -> bytes:
+    """2-bit packer for sketch blobs (reference utils.cpp:48-68).
+
+    Layout: one mod byte (len % 4), then big-endian-within-byte packed
+    nucleotides; a trailing partial byte is left-shifted one extra time
+    (the reference shifts after every append, including the last).
+    The reference's accumulator is uninitialized; observed behavior of
+    the compiled binaries is 0, which is pinned here.
+    """
+    if not s:
+        return b""
+    mod = len(s) % 4
+    out = bytearray([mod])
+    codes = NUC2INT_LUT[np.frombuffer(s.encode(), dtype=np.uint8)]
+    nfull = len(s) // 4
+    if nfull:
+        g = codes[: 4 * nfull].reshape(-1, 4)
+        out += ((g[:, 0] << 6) | (g[:, 1] << 4) | (g[:, 2] << 2)
+                | g[:, 3]).tobytes()
+    if mod != 0:
+        c = 0
+        for v in codes[4 * nfull:]:
+            c = ((c | int(v)) << 2) & 0xFF
+        out.append(c)
+    return bytes(out)
 
 
 def compute_threshold(k: int, m: int, sampling_rate: float) -> int:

@@ -256,10 +256,13 @@ class DeviceChain:
     ``compact`` reads the host once, and compacts again only when the
     guess was too small. ``DeviceChain(t)`` walks a whole single-tile
     sequence from the window-0 election; a tile of a longer sequence
-    passes its entering state (init5, fb) and n_pad = the owned size."""
+    passes its entering state (init5, fb) and n_pad = the owned size.
+    pack=False skips the compaction: the device-dedup path
+    (sketch/pipeline.py DedupDeviceChain) takes ``compact_outs``."""
 
     def __init__(self, t: ScanTables, sel_cap_guess: int = 4096,
-                 init5=None, fb=None, n_pad: int | None = None):
+                 init5=None, fb=None, n_pad: int | None = None,
+                 pack: bool = True):
         if n_pad is None:
             n_pad = -(-t.nxt_pos_a.numel() // _BP) * _BP
         self._t = t
@@ -268,13 +271,17 @@ class DeviceChain:
         (self.ei, self.el, self.es, self.cnt,
          self.scal) = walk_kernel(pack_succ(t, n_pad), init5)
         self._cap = _sel_cap(sel_cap_guess)
-        self._arr = self._compacted()
+        if pack:
+            self._arr = self._compacted()
         self.n_sel = None
 
+    def compact_outs(self, sel_cap: int):
+        """The _compact_emits outputs at sel_cap slots, on the device."""
+        return _compact_emits(self.ei, self.el, self.es, self.cnt,
+                              self.scal, self._t, sel_cap, self._fb)
+
     def _compacted(self) -> torch.Tensor:
-        return pack_compact_outs(_compact_emits(
-            self.ei, self.el, self.es, self.cnt, self.scal, self._t,
-            self._cap, self._fb), self.scal)
+        return pack_compact_outs(self.compact_outs(self._cap), self.scal)
 
     def carry(self, own: int):
         """(init5, fb) of the next tile's walk, on the device."""

@@ -25,6 +25,15 @@ native C finisher (supersampler_tpu_torch.native, csrc/spsp_finish.c) dedups,
 reconstructs and serializes in record order, so the bytes match the
 reference.
 
+Two opt-ins (``TorchSubsampler.device_dedup`` and ``native_finisher``)
+send every record of a sketch through ``_launch_scan`` instead, JAX's
+per-record routes: a FieldChain, a single walk (DeviceChain, or with
+device dedup DedupDeviceChain) or a TiledDeviceChain. With
+``device_dedup`` each region's fetch also carries its unique selected
+k-mers (ops/dedup.py), merged into the Python k-mer store
+(sketch/store.py); with ``native_finisher = False`` the Python store
+takes every selected super-k-mer. The bytes are the same.
+
 Every sketch, of one file or of a file of files, runs through
 ``sketch_fof`` (``_SharedSketchRun``): one reader thread, a
 2-worker prep pool (the C clean + pack, which releases the GIL), one
@@ -54,7 +63,12 @@ from supersampler_tpu_torch.io.fasta import stream_fasta_spans
 from supersampler_tpu_torch.native import (NativeFinisher,
                                            clean_pack_batch_native,
                                            clean_pack_native)
-from supersampler_tpu_torch.ops.field import (_pow2_ge, field_carry,
+from supersampler_tpu_torch.ops.dedup import (dedup_chain_packed,
+                                              field_dedup_packed,
+                                              merge_unique_host,
+                                              parse_dedup_array,
+                                              parse_field_dedup_array)
+from supersampler_tpu_torch.ops.field import (_HEAD, _pow2_ge, field_carry,
                                               field_entry_init,
                                               field_entry_to_walker_init,
                                               parse_batched_heads,
@@ -67,6 +81,7 @@ from supersampler_tpu_torch.ops.field import (_pow2_ge, field_carry,
 from supersampler_tpu_torch.ops.minimizer import (scan_tables_2d_packed,
                                                   succ_tables)
 from supersampler_tpu_torch.ops.walker import DeviceChain
+from supersampler_tpu_torch.sketch.store import KmerStore
 from supersampler_tpu_torch.utils.profiling import device_trace, phase
 
 # tile geometry: sequences longer than one tile stream through fixed
@@ -112,16 +127,78 @@ def _merge_tiles(parts, own: int):
             last_pos_t + t * own, tv, tr, ts)
 
 
+class DedupDeviceChain:
+    """Walk and on-device k-mer dedup of one region (pipeline.py:83):
+    one fetch carries the compact boundaries and the unique k-mers
+    (ops/dedup.py dedup_chain_packed).
+
+    packed_ext: the region's 2-bit codes with the 128-position halo on
+    the device, P_ext positions; the tables were scanned from the part
+    after the halo. length: local sequence length, or -1 for a non-final
+    tile (no tail flush here). After ``compact``: n_sel, n_kmers and
+    uniques_list (one entry, for merge_unique_host)."""
+
+    def __init__(self, tables, packed_ext: torch.Tensor, P_ext: int, k: int,
+                 m: int, length: int, sel_cap_guess: int = 4096,
+                 kmer_cap_guess: int = 8192, init5=None, fb=None,
+                 n_pad: int | None = None):
+        self._dc = DeviceChain(tables, sel_cap_guess, init5=init5, fb=fb,
+                               n_pad=n_pad, pack=False)
+        self.scal = self._dc.scal
+        self._k, self._m = k, m
+        self._packed_ext = packed_ext
+        self._P_ext = P_ext
+        self._len = length
+        self._cap = _pow2_ge(sel_cap_guess)
+        self._K = _pow2_ge(kmer_cap_guess)
+        self._arr = self._dispatch()
+        self.n_sel = self.n_kmers = self.uniques_list = None
+
+    def _dispatch(self) -> torch.Tensor:
+        return dedup_chain_packed(self._dc.compact_outs(self._cap), self.scal,
+                                  self._packed_ext, self._len, self._k,
+                                  self._m, self._P_ext, self._K)
+
+    def carry(self, own: int):
+        """(init5, fb) of the next tile's walk, on the device."""
+        return self._dc.carry(own)
+
+    def compact(self):
+        """The compact 9-tuple, positions local to this walk. Retries at
+        bigger capacities while the span list or the k-mer rows were
+        cut; a cut span list undercounts n_kmers, so K is bounded by the
+        spans times a super-k-mer's most k-mers."""
+        arr = self._arr.cpu().numpy()
+        while True:
+            n_sel = int(arr[0])
+            n_kmers = int(arr[8 + 4 * self._cap])
+            if n_sel <= self._cap and n_kmers <= self._K:
+                break
+            self._cap = max(self._cap, _pow2_ge(n_sel))
+            self._K = max(self._K, _pow2_ge(max(
+                n_kmers, (n_sel + 1) * (self._k - self._m + 1))))
+            arr = self._dispatch().cpu().numpy()
+        comp, self.n_sel, self.n_kmers, uniques = parse_dedup_array(
+            arr, self._cap, self._K)
+        self.uniques_list = [uniques]
+        return comp
+
+
 class _TileChain:
     """One sequence, tile by tile: tile t owns loop positions
     [t*own, (t+1)*own) and scans own + extra positions; a state carried
     on the device links each tile to the next. slab: the record's 2-bit
     codes with a 128-position leading halo (byte 32 holds position 0),
-    n_tiles * own + extra positions. Subclasses give ``_tile``."""
+    n_tiles * own + extra positions. Subclasses give ``_tile``.
+
+    dedup: each tile's fetch also carries its unique selected k-mers
+    (ops/dedup.py); ``uniques_list`` holds them in tile order and
+    ``n_kmers`` the last tile's k-mer count."""
 
     def __init__(self, slab: np.ndarray, n_tiles: int, k: int, m: int,
                  length: int, threshold: int, own: int, extra: int,
-                 sel_cap_guess: int, select_all: bool, device):
+                 sel_cap_guess: int, select_all: bool, device,
+                 dedup: bool = False, kmer_cap_guess: int = 8192):
         self._slab = slab
         self._n_tiles = n_tiles
         self._k, self._m = k, m
@@ -134,6 +211,10 @@ class _TileChain:
         self._device = device
         self.n_sel = 0
         self.fallback_tiles = []     # tiles that took the exact walker
+        self._dedup = dedup
+        self._kguess = kmer_cap_guess
+        self.uniques_list = [] if dedup else None
+        self.n_kmers = None
 
     def _ext(self, t: int) -> torch.Tensor:
         """Tile t's packed codes with the 128-position halo, on the
@@ -147,6 +228,23 @@ class _TileChain:
         """(compact 9-tuple of tile t, its n_sel, the next tile's state;
         None after the last tile). state is None for tile 0."""
         raise NotImplementedError
+
+    def _dedup_length(self, t: int) -> int:
+        """Tile t's local length for the dedup tail: -1 unless it is the
+        last tile, which flushes the tail span."""
+        return (self._L - t * self._own) if t == self._n_tiles - 1 else -1
+
+    def _dedup_walk(self, t: int, tables, ext, guess: int, init5, fb):
+        """A DedupDeviceChain over tile t's owned positions."""
+        return DedupDeviceChain(tables, ext, self._tile_p + 128, self._k,
+                                self._m, self._dedup_length(t), guess,
+                                self._kguess, init5=init5, fb=fb,
+                                n_pad=self._own)
+
+    def _take_uniques(self, uniques, n_kmers: int) -> None:
+        self.uniques_list.append(uniques)
+        self.n_kmers = n_kmers
+        self._kguess = max(8192, 2 * n_kmers)
 
     def compact(self):
         """Run every tile in order and merge the per-tile compacts into
@@ -163,24 +261,31 @@ class _TileChain:
 
 
 class TiledDeviceChain(_TileChain):
-    """The exact engine over one sequence (pipeline.py:141-251, without
-    device dedup): each tile's successor tables, scanned with the real
-    remaining length so successors may point past the tile, and a walk
-    of its own positions; the walk's state (init5, fb) carries to the
-    next tile on the device (DeviceChain.carry)."""
+    """The exact engine over one sequence (pipeline.py:141-251): each
+    tile's successor tables, scanned with the real remaining length so
+    successors may point past the tile, and a walk of its own
+    positions; the walk's state (init5, fb) carries to the next tile on
+    the device (DeviceChain.carry)."""
 
     def _tile(self, t: int, carry):
         own = self._own
         with phase("dispatch"):
+            ext = self._ext(t)
             tables = scan_tables_2d_packed(
-                self._ext(t)[32:], self._k, self._m, self._tile_p,
+                ext[32:], self._k, self._m, self._tile_p,
                 self._L - t * own, *self._thr)
             init5, fb = carry if carry is not None else (None, None)
-            dc = DeviceChain(tables,
-                             own if self._select_all else self._guess,
-                             init5=init5, fb=fb, n_pad=own)
+            guess = own if self._select_all else self._guess
+            if self._dedup:
+                dc = self._dedup_walk(t, tables, ext, guess, init5, fb)
+            else:
+                dc = DeviceChain(tables, guess, init5=init5, fb=fb,
+                                 n_pad=own)
             nxt = dc.carry(own) if t < self._n_tiles - 1 else None
-        return _compact(dc), dc.n_sel, nxt
+        comp = _compact(dc)
+        if self._dedup:
+            self._take_uniques(dc.uniques_list[0], dc.n_kmers)
+        return comp, dc.n_sel, nxt
 
 
 class FieldChain(_TileChain):
@@ -197,23 +302,38 @@ class FieldChain(_TileChain):
         # non-final tiles cap last_i at own-1 (the carry handoff point)
         length_t = (self._L - t * own) if last else (own + k)
         with phase("dispatch"):
-            ft = scan_field_2d_packed(self._ext(t)[32:], k, m, P_t,
-                                      length_t)
+            ext = self._ext(t)
+            ft = scan_field_2d_packed(ext[32:], k, m, P_t, length_t)
             if entry is None:
                 entry = field_entry_init(ft, *self._thr)
         cap = _pow2_ge(own if self._select_all else self._guess)
+        K = _pow2_ge(own if self._select_all else self._kguess)
         while True:
             with phase("dispatch"):
                 arr = resolve_field(ft, k, m, cap, entry, *self._thr)
-            a = _fetch(arr)
+                if self._dedup:
+                    out = field_dedup_packed(arr, cap, ext,
+                                             self._dedup_length(t), k, m,
+                                             P_t + 128, K)
+            a = _fetch(out if self._dedup else arr)
             if int(a[0]) != 0:
-                return self._fallback(t, ft, entry, cap)
-            if int(a[1]) <= cap:
-                _st, comp, n_sel = parse_field_array(a, cap)
+                return self._fallback(t, ft, entry, cap, ext)
+            n_sel = int(a[1])
+            n_kmers = int(a[_HEAD + 4 * cap]) if self._dedup else 0
+            if n_sel <= cap and n_kmers <= K:
+                if self._dedup:
+                    _st, comp, n_sel, n_kmers, uniques = \
+                        parse_field_dedup_array(a, cap, K)
+                    self._take_uniques(uniques, n_kmers)
+                else:
+                    _st, comp, n_sel = parse_field_array(a, cap)
                 return comp, n_sel, None if last else field_carry(arr, own)
-            cap = _pow2_ge(int(a[1]))
+            if self._dedup:      # JAX's bound, as DedupDeviceChain's
+                K = max(K, _pow2_ge(max(n_kmers,
+                                        (n_sel + 1) * (k - m + 1))))
+            cap = max(cap, _pow2_ge(n_sel))
 
-    def _fallback(self, t: int, ft, entry, cap: int):
+    def _fallback(self, t: int, ft, entry, cap: int, ext):
         """Tile t through the walker (pipeline.py:346-385). The
         successor tables come from the field scan's own tables with the
         real remaining length; no second scan runs."""
@@ -224,14 +344,20 @@ class FieldChain(_TileChain):
                                           ft.init_h_hi, ft.init_h_lo),
                                  k, m, self._L - t * own, *self._thr)
             init5, fb = field_entry_to_walker_init(ft, entry)
-            dc = DeviceChain(tables,
-                             own if self._select_all else max(cap, 4096),
-                             init5=init5, fb=fb, n_pad=own)
+            guess = own if self._select_all else max(cap, 4096)
+            if self._dedup:
+                dc = self._dedup_walk(t, tables, ext, guess, init5, fb)
+            else:
+                dc = DeviceChain(tables, guess, init5=init5, fb=fb,
+                                 n_pad=own)
             nxt = None
             if t < self._n_tiles - 1:
                 nxt = walker_exit_to_field_entry(ft, dc.scal, entry, k, m,
                                                  own, *self._thr)
-        return _compact(dc), dc.n_sel, nxt
+        comp = _compact(dc)
+        if self._dedup:
+            self._take_uniques(dc.uniques_list[0], dc.n_kmers)
+        return comp, dc.n_sel, nxt
 
 
 class SubsamplerState:
@@ -267,11 +393,13 @@ class SubsamplerState:
         self.read_kmer = 0
 
 
-class TorchSubsampler(SubsamplerState):
+class TorchSubsampler(SubsamplerState, KmerStore):
     """Sketcher whose scan and resolve run on a torch device; intake,
-    reconstruction and serialization go to the native C finisher."""
+    reconstruction and serialization go to the native C finisher, or
+    to the Python k-mer store (KmerStore) when an opt-in below asks."""
 
     _sel_cap_guess = 4096
+    _kmer_cap_guess = 8192
     # short-record batching: records whose padded bucket is at most
     # _SHORT_MAX positions resolve per size bucket in one batch;
     # _batch_sel_rate (selected events per position) sizes the batch's
@@ -285,17 +413,49 @@ class TorchSubsampler(SubsamplerState):
     # fallback; "legacy": every record through successor tables and the
     # walker (pipeline.py:504-508). Both give the same bytes.
     scan_engine = "field"
+    # opt-ins, set before the first sketch (pipeline.py:494-547):
+    # device_dedup = True expands, sorts and counts the selected k-mers
+    # on the device (ops/dedup.py) and merges the unique ones into the
+    # Python k-mer store; native_finisher = False feeds the Python store
+    # super-k-mer by super-k-mer. Either sends every record through
+    # _launch_scan (no short batches). None is JAX's auto rule: dedup
+    # only where no native finisher builds, and the port's always builds
+    # (or raises), so auto is dedup off and the finisher on.
+    device_dedup = None
+    native_finisher = None
 
     def __init__(self, k: int = 31, m: int = 11, s: float = 1000.0,
                  abundance: int = 1, device="cuda"):
         super().__init__(k=k, m=m, s=s, abundance=abundance)
         self.device = torch.device(device)
-        self._nf_obj = NativeFinisher(k, m, abundance)
+        self.minimizer_map = {}       # the Python store (KmerStore)
+        self._nf_obj = None           # the native finisher, made by _nf
         self._thr = (self.threshold >> 32, self.threshold & 0xFFFFFFFF)
         self._margin = 2 * (2 * k - m + 2) + 128
         # regions re-run through the exact walker, by route: tiles of
         # FieldChain, single-tile records, records of a short batch
         self.fallbacks = {"tile": 0, "single": 0, "batch": 0}
+
+    # ---- intake target ----
+    def _uses_store(self) -> bool:
+        """Whether intake goes to the Python k-mer store in place of the
+        native finisher: with device dedup (which fills the store) or
+        with the finisher turned off."""
+        if self.device_dedup:
+            if self.native_finisher:
+                raise ValueError("device_dedup fills the Python k-mer "
+                                 "store; native_finisher cannot be True")
+            return True
+        return self.native_finisher is not None and not self.native_finisher
+
+    def _nf(self):
+        """The native finisher, made at first use; None when the Python
+        store takes intake."""
+        if self._uses_store():
+            return None
+        if self._nf_obj is None:
+            self._nf_obj = NativeFinisher(self.k, self.m, self.abundance)
+        return self._nf_obj
 
     # ---- geometry ----
     def _plan_geometry(self, n_raw: int):
@@ -306,19 +466,44 @@ class TorchSubsampler(SubsamplerState):
         own = self._tile_own
         return own, max(1, -(-(n_raw - self.k) // own))
 
+    def _scan_geometry(self, L: int):
+        """(route, own, n_tiles, slab positions after the halo) of
+        _launch_scan for a record of length L (pipeline.py:573-619):
+        "field" for the field engine past 1,024 padded positions (790 bp
+        at k=31, m=11), "walk" for one walk region of padded_size(L)
+        positions, "tiled" for longer legacy records. The positions grow
+        with L, so a slab planned from a raw length fits its cleaned
+        record."""
+        if self.scan_engine == "field" and L + self._margin > 1024:
+            own, n_tiles = self._plan_geometry(L)
+        elif L + self._margin <= self._tile_own:
+            P = padded_size(L, self._margin)
+            return "walk", P, 1, P
+        else:
+            own = self._tile_own
+            n_tiles = max(1, -(-(L - self.k) // own))
+        route = "field" if self.scan_engine == "field" else "tiled"
+        return route, own, n_tiles, n_tiles * own + self._tile_extra
+
     # ---- per chunk (prep pool) ----
     def _prep_chunk(self, data: bytes, spans):
         """Clean + 2-bit pack every record of a chunk: one C call per
         short-record size group, one per longer record. Returns
         (routes, groups) with routes[i] one of ("skip",),
-        ("grp", group, slot) or (engine, ref, slab, L, own, n_tiles),
-        engine "field" or "legacy". A span that ends before it starts
-        is an empty record."""
+        ("grp", group, slot), (engine, ref, slab, L, own, n_tiles),
+        engine "field" or "legacy", or, when the Python store takes
+        intake, ("scan", ref, slab, L) (_prep_scan). A span that ends
+        before it starts is an empty record."""
         k = self.k
         routes = [None] * len(spans)
         bygroup = {}          # own -> [(rec_idx, start, end)]
+        scan = self._uses_store()
         for i, (s, e) in enumerate(spans):
             n_raw = max(e - s, 0)
+            if scan:
+                routes[i] = self._prep_scan(
+                    np.frombuffer(data, np.uint8, n_raw, s))
+                continue
             if self.scan_engine == "legacy":
                 routes[i] = self._prep_legacy(
                     np.frombuffer(data, np.uint8, n_raw, s))
@@ -386,6 +571,72 @@ class TorchSubsampler(SubsamplerState):
         return ("legacy", ref, slab[: (128 + n_tiles * own + extra) >> 2],
                 L, own, n_tiles)
 
+    def _prep_scan(self, raw: np.ndarray):
+        """Clean + pack one record for _launch_scan, its slab planned
+        from the raw length. Returns its route."""
+        ref, slab, L = clean_pack_native(
+            raw, self._scan_geometry(raw.size)[3], 128)
+        if L < self.k:
+            return ("skip",)
+        return ("scan", ref, slab, L)
+
+    # ---- the per-record path (JAX TpuSubsampler.scan_sequence) ----
+    def _launch_scan(self, ref: np.ndarray, slab: np.ndarray | None = None):
+        """The chain of one cleaned record (uint8 array) on its route
+        (_scan_geometry): a FieldChain, a DeviceChain (with device dedup a
+        DedupDeviceChain) or a TiledDeviceChain, whose ``compact()``
+        issues the rest and fetches. slab: the record's 2-bit codes with
+        the 128-position halo (_prep_scan); packed here when None."""
+        k, m = self.k, self.m
+        L = ref.size
+        route, own, n_tiles, positions = self._scan_geometry(L)
+        if slab is None:
+            _ref, slab, _L = clean_pack_native(ref, positions, 128)
+        slab = slab[: (128 + positions) >> 2]
+        dedup = bool(self.device_dedup)
+        select_all = self.s <= 1
+        sel_guess = own if select_all else self._sel_cap_guess
+        kmer_guess = own if select_all else self._kmer_cap_guess
+        if route == "walk":
+            with phase("dispatch"):
+                ext = torch.from_numpy(slab).to(self.device)
+                tables = scan_tables_2d_packed(ext[32:], k, m, own, L,
+                                               *self._thr)
+                if not dedup:
+                    return DeviceChain(tables, sel_guess)
+                return DedupDeviceChain(tables, ext, own + 128, k, m, L,
+                                        sel_guess, kmer_guess)
+        cls = FieldChain if route == "field" else TiledDeviceChain
+        return cls(slab, n_tiles, k, m, L, self.threshold, own,
+                   self._tile_extra, sel_guess, select_all, self.device,
+                   dedup=dedup, kmer_cap_guess=kmer_guess)
+
+    def _fetch_scan(self, dc):
+        """(compact 9-tuple, uniques list or None) of a _launch_scan
+        chain. Adapts the capacity guesses to it (pipeline.py:559-571)
+        and counts its fallback tiles under "tile"."""
+        comp = dc.compact() if isinstance(dc, _TileChain) else _compact(dc)
+        self._sel_cap_guess = max(4096, 2 * dc.n_sel)
+        n_kmers = getattr(dc, "n_kmers", None)
+        if n_kmers is not None:
+            self._kmer_cap_guess = max(8192, 2 * n_kmers)
+        self.fallbacks["tile"] += len(getattr(dc, "fallback_tiles", ()))
+        return comp, getattr(dc, "uniques_list", None)
+
+    def scan_sequence(self, ref) -> None:
+        """Sketch one cleaned record (str, bytes or uint8 array of
+        uppercase ACGT) into this sketcher's store or finisher through
+        _launch_scan (pipeline.py:634). A record shorter than k adds
+        nothing, as in the reference."""
+        if isinstance(ref, str):
+            ref = ref.encode()
+        if isinstance(ref, bytes):
+            ref = np.frombuffer(ref, np.uint8)
+        if ref.size < self.k:
+            return
+        comp, uniques = self._fetch_scan(self._launch_scan(ref))
+        self._assemble_compact(ref, *comp, uniques_list=uniques)
+
     # ---- host assembly of a short batch (calling thread) ----
     def _ingest_run(self, g, a: int, b: int) -> None:
         """Assemble group g's slots [a, b) in record order: a record the
@@ -423,7 +674,7 @@ class TorchSubsampler(SubsamplerState):
             heads[:, 6] != 0,
             np.where(heads[:, 2] > 0, heads[:, 3] + 1, 0),
             -1).astype(np.int64)
-        self._nf_obj.add_spans_batch(
+        self._nf().add_spans_batch(
             g["ref_pool"], g["ref_offs"][a:b], lens, g["pos"][s0:s1],
             g["last"][s0:s1], g["val"][s0:s1], g["rev"][s0:s1],
             o[a : b + 1] - s0, tail_last, heads[:, 4].view(np.uint32),
@@ -438,17 +689,29 @@ class TorchSubsampler(SubsamplerState):
     # ---- host assembly (reference SubSampler.cpp:401-454) ----
     def _assemble_compact(self, ref, sel_pos, sel_last, sel_val, sel_rev,
                           n_ev, last_ev_pos, tail_val, tail_rev,
-                          tail_sel):
+                          tail_sel, uniques_list=None):
         """Replay the boundary loop from the compacted selected
-        boundaries into the native finisher. The aggregate counters
-        telescope: a sequence has exactly L-k+1 k-mers and n_ev+1
-        super-k-mers."""
+        boundaries into the native finisher or the Python store. The
+        aggregate counters telescope: a sequence has exactly L-k+1
+        k-mers and n_ev+1 super-k-mers. With uniques_list (device dedup)
+        the intake was done on the device: the uniques merge into the
+        store. ref: the cleaned record as a uint8 array."""
         k = self.k
         L = len(ref)
         self.total_kmer_number += L - k + 1
         self.total_superkmer_number += n_ev + 1
+        nf = self._nf()
+        if nf is None and uniques_list is None:
+            self._store_spans(ref.tobytes(), sel_pos, sel_last, sel_val,
+                              sel_rev, n_ev, last_ev_pos, tail_val,
+                              tail_rev, tail_sel)
+            return
         self._span_counters(L, sel_pos, sel_last, n_ev, last_ev_pos,
                             tail_sel)
+        if uniques_list is not None:
+            for uniques in uniques_list:
+                merge_unique_host(self, uniques)
+            return
         pos = np.asarray(sel_pos, np.int64)
         last = np.asarray(sel_last, np.int64)
         val = np.asarray(sel_val, np.uint32)
@@ -458,7 +721,34 @@ class TorchSubsampler(SubsamplerState):
             last = np.append(last, last_ev_pos + 1 if n_ev else 0)
             val = np.append(val, np.uint32(tail_val))
             rev = np.append(rev, np.uint8(tail_rev))
-        self._nf_obj.add_spans(ref, pos, last, val, rev)
+        nf.add_spans(ref, pos, last, val, rev)
+
+    def _store_spans(self, ref: bytes, sel_pos, sel_last, sel_val, sel_rev,
+                     n_ev, last_ev_pos, tail_val, tail_rev,
+                     tail_sel) -> None:
+        """The reference's boundary loop (SubSampler.cpp:401-454) over
+        the selected boundaries into the Python store, one
+        handle_superkmer per super-k-mer (pipeline.py:836-857)."""
+        k, m = self.k, self.m
+        pos_end = 0
+        for j in range(len(sel_pos)):
+            i = int(sel_pos[j])
+            last_position = int(sel_last[j])
+            if last_position + m - 2 > pos_end:
+                if pos_end > 0:
+                    self.nb_mmer_selected -= m - 1
+                self.nb_mmer_selected += i + k - last_position
+                self.nb_mmer_selected -= k - m
+            else:
+                self.nb_mmer_selected += i + k - (pos_end + 1)
+            self.handle_superkmer(ref[last_position : i + k],
+                                  int(sel_val[j]), bool(sel_rev[j]))
+            pos_end = i + k - 1
+        # the tail flush (SubSampler.cpp:441-454)
+        if tail_sel:
+            self.nb_mmer_selected -= m - 1
+            self.handle_superkmer(ref[last_ev_pos + 1 if n_ev else 0 :],
+                                  int(tail_val), bool(tail_rev))
 
     def _span_counters(self, L, sel_pos, sel_last, n_ev, last_ev_pos,
                        tail_sel):
@@ -528,10 +818,13 @@ class TorchSubsampler(SubsamplerState):
             self.count_maximal_skmer += int((tlen == 2 * k - m).sum())
 
     def serialize(self) -> bytes:
+        nf = self._nf()
+        if nf is None:
+            return super().serialize()
         header = "{} {} {} {}\n".format(
             self.k - 1 + self.max_superkmer_size, self.m,
             self.selected_kmer_number, format_double(self.s)).encode()
-        payload, c = self._nf_obj.serialize()
+        payload, c = nf.serialize()
         self.seen_kmers_at_reconstruction += int(c[0])
         self.seen_superkmers_at_reconstruction += int(c[1])
         self.seen_max_superkmers_at_reconstruction += int(c[2])
@@ -559,19 +852,22 @@ class _SharedSketchRun:
     packs each chunk (``TorchSubsampler._prep_chunk``, C calls that
     release the GIL); one device thread, with the run's card current,
     issues the chunk's device work in file-major record order (short
-    batches first, then the other records) and fetches each result;
-    the calling thread assembles in the same order into each file's own
-    finisher, so bucket first-insertion order follows record order per
-    file. At most ``_IN_FLIGHT`` chunks are between read and assembly,
-    so host memory stays O(window + largest record) per chunk. A file
-    serializes as soon as its last chunk has drained, in fof order.
+    batches first, then the other records; a run whose members use the
+    Python store sends each record through ``_launch_scan``) and
+    fetches each result; the calling thread assembles in the same order
+    into each file's own finisher or store, so bucket first-insertion
+    order follows record order per file. At most ``_IN_FLIGHT`` chunks
+    are between read and assembly, so host memory stays O(window +
+    largest record) per chunk. A file serializes as soon as its last
+    chunk has drained, in fof order.
 
     Invariants:
       * every member has the same sketch parameters and device
         (sketch_fof groups items by _shared_params_key);
       * records of one file assemble in record order into that file's
         finisher; files finalize in fof order;
-      * the adaptive capacities (selection guess, batch selection rate)
+      * the adaptive capacities (selection and k-mer guesses, batch
+        selection rate)
         live on the run and are written back to every member at the
         end; they size device buffers only, never the bytes.
     """
@@ -595,6 +891,7 @@ class _SharedSketchRun:
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.sel_guess = ss0._sel_cap_guess
+        self.kmer_guess = ss0._kmer_cap_guess
         self.rate = ss0._batch_sel_rate
 
     @staticmethod
@@ -688,16 +985,29 @@ class _SharedSketchRun:
             dc = DeviceChain(t, P if self.select_all else self.sel_guess)
         return _compact(dc), dc.n_sel
 
+    def _scan(self, ss, ref: np.ndarray, slab: np.ndarray):
+        """(compact 9-tuple, uniques list or None) of a "scan" route's
+        record through ss._launch_scan, with the run's capacity
+        guesses."""
+        ss._sel_cap_guess, ss._kmer_cap_guess = self.sel_guess, self.kmer_guess
+        out = ss._fetch_scan(ss._launch_scan(ref, slab))
+        self.sel_guess, self.kmer_guess = ss._sel_cap_guess, ss._kmer_cap_guess
+        return out
+
     def _device_chunk(self, ss, prep):
         """Every device result of one chunk, in record order: the short
         batches, then one compact 9-tuple per other record (None for
-        "skip" and "grp" routes). Returns (routes, groups, comps)."""
+        "skip" and "grp" routes; for "scan" routes with its uniques
+        list). Returns (routes, groups, comps)."""
         routes, groups = prep.result()
         for g in groups:
             self._resolve_group(ss, g)
         comps = [None] * len(routes)
         for i, p in enumerate(routes):
             if p[0] in ("skip", "grp"):
+                continue
+            if p[0] == "scan":
+                comps[i] = self._scan(ss, p[1], p[2])
                 continue
             engine, _ref, slab, L, own, n_tiles = p
             if engine == "legacy" and n_tiles == 1:
@@ -740,7 +1050,11 @@ class _SharedSketchRun:
                     continue
                 ref, L = p[1], p[3]
                 ss.read_kmer += L - k + 1
-                ss._assemble_compact(ref, *comps[i])
+                if p[0] == "scan":
+                    comp, uniques = comps[i]
+                    ss._assemble_compact(ref, *comp, uniques_list=uniques)
+                else:
+                    ss._assemble_compact(ref, *comps[i])
             if run is not None:
                 ss._ingest_run(*run)
 
@@ -811,6 +1125,7 @@ class _SharedSketchRun:
             devq.shutdown(cancel_futures=True)
         for ss, _path in self.items:
             ss._sel_cap_guess = self.sel_guess
+            ss._kmer_cap_guess = self.kmer_guess
             ss._batch_sel_rate = self.rate
         return results
 
@@ -861,7 +1176,8 @@ def _prefetch_iter(gen, depth: int = 2):
 
 def _shared_params_key(ss):
     return (ss.k, ss.m, ss.threshold, ss.s, ss.abundance, ss.scan_engine,
-            ss._tile_own, ss._tile_extra, ss._SHORT_MAX, str(ss.device))
+            ss._tile_own, ss._tile_extra, ss._SHORT_MAX, str(ss.device),
+            bool(ss.device_dedup), ss._uses_store())
 
 
 def sketch_fof(items, on_result=None):
@@ -869,7 +1185,9 @@ def sketch_fof(items, on_result=None):
     pipeline per parameter set (see _SharedSketchRun). Returns the
     sketch bytes per item, aligned with the input: None for a file that
     cannot be opened, which prints the reference's two messages to its
-    subsampler's log. Each item needs a subsampler of its own.
+    subsampler's log. Each item needs a subsampler of its own. Items
+    with device dedup on or the native finisher off run (in runs of
+    their own) every record through _launch_scan.
 
     on_result(idx, raw): called as each item's sketch is serialized (a
     file finalizes as soon as its last chunk drains, in input order),

@@ -285,6 +285,55 @@ def test_sketch_fof_on_cuda_equals_cpu(cuda, tmp_path):
     assert out["cpu"][2] is None
 
 
+@pytest.mark.parametrize("engine", ["field", "legacy"])
+@pytest.mark.parametrize("flags", [{"device_dedup": True},
+                                   {"native_finisher": False}])
+def test_golden_sketch_on_cuda_through_the_store(cuda, tmp_path, flags,
+                                                 engine):
+    """The device-dedup path and the Python store on the card: the
+    golden's bytes on both engines."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    data = _load("make_data").make_all(str(tmp_path))
+    with gzip.open(os.path.join(here, "golden",
+                                "sketch_big_k31_m11_s100_a1.gz")) as f:
+        golden = f.read()
+    ss = TorchSubsampler(k=31, m=11, s=100.0, device=cuda)
+    ss.scan_engine = engine
+    for name, value in flags.items():
+        setattr(ss, name, value)
+    assert ss.sketch_file(data["big"]) == golden
+
+
+@pytest.mark.parametrize("s", [1.0, 64.0])
+def test_dedup_spans_on_cuda_equals_cpu(cuda, s):
+    from supersampler_tpu_torch.ops.dedup import dedup_spans
+
+    k, m, P, L = 31, 11, 1 << 16, 60000
+    codes = np.zeros(P, np.uint8)
+    codes[128 : 128 + L] = np.random.default_rng(3).integers(0, 4, L)
+    ss = TorchSubsampler(k=k, m=m, s=s, device="cpu")
+    comp, _ = ss._fetch_scan(ss._launch_scan(
+        np.frombuffer(b"ACTG", np.uint8)[codes[128 : 128 + L]]))
+    n = comp[0].size
+    spans = [np.full(n + 1, -1, np.int64) for _ in range(2)]
+    spans[0][:n], spans[1][:n] = comp[0] + 128, comp[1] + 128
+    val = np.zeros(n + 1, np.int64)
+    val[:n] = comp[2]
+    rev = np.zeros(n + 1, bool)
+    rev[:n] = comp[3]
+    K = 1 << 16
+    out = [dedup_spans(torch.from_numpy(codes).to(dev),
+                       tuple(torch.from_numpy(a).to(dev)
+                             for a in (*spans, val, rev))
+                       + (torch.tensor(n, device=dev),), k, m, P, K)
+           for dev in (cuda, "cpu")]
+    n_unique = int(out[1][1])
+    assert int(out[0][0]) == int(out[1][0]) <= K and n_unique > 0
+    assert int(out[0][1]) == n_unique
+    for a, b in zip(out[0][2:], out[1][2:]):
+        assert torch.equal(a[:n_unique].cpu(), b[:n_unique])
+
+
 @pytest.mark.parametrize("chunk_groups", [512, 1 << 18])
 @pytest.mark.parametrize("n_files", [1, 4, 17, 64, 130])
 def test_score_matrix_on_cuda_equals_cpu(cuda, n_files, chunk_groups):

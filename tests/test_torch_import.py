@@ -1,9 +1,9 @@
 """The PyTorch port imports no JAX and nothing of supersampler_tpu.
 
 A fresh interpreter imports every module of supersampler_tpu_torch,
-sketches a small FASTA on the CPU (alone and as a fof through
-sketch_fof, reading the phase timers), runs the sub_sampler CLI (-i and
--f) and the
+sketches a small FASTA on the CPU (alone, through device dedup and the
+Python k-mer store, and as a fof through sketch_fof, reading the phase
+timers), runs the sub_sampler CLI (-i and -f) and the
 comparator CLI over the family goldens and the multi-device dry run
 (parallel/dryrun.py, with parallel/mesh.py and parallel/dist.py) over
 two CPU entries; ``jax`` and
@@ -22,6 +22,7 @@ import pytest
 import supersampler_tpu.core.scalar as JS
 import supersampler_tpu.io.fasta as JFA
 import supersampler_tpu.io.gzip_exact as JGZ
+import supersampler_tpu.oracle.subsampler as JOS
 import supersampler_tpu_torch.core.scalar as TS
 import supersampler_tpu_torch.io.fasta as TFA
 import supersampler_tpu_torch.io.gzip_exact as TGZ
@@ -47,6 +48,10 @@ with tempfile.TemporaryDirectory() as tmp:
             .encode() + b"\\n" for i, n in enumerate((3000, 500, 40)))))
     raw = TorchSubsampler(k=31, m=11, s=10.0, device="cpu").sketch_file(path)
     assert raw and raw.split(b" ", 1)[0] == b"51", raw[:40]
+    for flag, value in (("device_dedup", True), ("native_finisher", False)):
+        ss = TorchSubsampler(k=31, m=11, s=10.0, device="cpu")
+        setattr(ss, flag, value)
+        assert ss.sketch_file(path) == raw and ss._nf_obj is None, flag
     os.chdir(tmp)
     os.environ["TORCH_DEVICE"] = "cpu"
     out = io.StringIO()
@@ -111,12 +116,22 @@ def test_int_to_string_matches_jax(n):
     assert TS.int_to_string(n) == JS.int_to_string(n)
 
 
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 7, 8, 61, 1000])
+def test_str_compressor_matches_jax(n):
+    s = "".join(np.random.default_rng(n).choice(list("ACGT"), n))
+    assert TS.str_compressor(s) == JS.str_compressor(s)
+
+
 def test_host_constants_match_jax():
     for name in ("MASK64", "PRIME1", "PRIME2", "PRIME3", "PRIME4",
                  "PRIME5", "SEED", "INT2NUC"):
         assert getattr(TS, name) == getattr(JS, name), name
     assert TS.NUC2INT_LUT.dtype == JS.NUC2INT_LUT.dtype
     assert np.array_equal(TS.NUC2INT_LUT, JS.NUC2INT_LUT)
+    assert [TS.nuc2int(chr(c)) for c in range(256)] == [
+        JS.nuc2int(chr(c)) for c in range(256)]
+    assert TS._B4_BYTES == JOS._B4_BYTES
+    assert TS._COMP_BYTES == JOS._COMP_BYTES
     rng = np.random.default_rng(9)
     for k in (1, 11, 31, 32, 33, 63):
         for _ in range(20):
