@@ -97,6 +97,22 @@ Phases, each printing its result; any failure exits non-zero:
      each opt-in. Each run's walls beside the default path's, its
      launches (the scan and sweep, or the walk, of its routes must
      launch) and its phase timers' report.
+  9. the card against the port's scalar oracle (supersampler_tpu_torch/
+     oracle, pure Python, sharing with the card path only the k-mer
+     store, the counters and the threshold): 40 fuzz files of
+     tests/oracle_cases.py's shapes (empty records, N/R/Y runs,
+     lowercase, CB/TU/GF/A@ pairs, CRLF, blank lines, odd widths,
+     records shorter than k and at the 1,024-position route boundary,
+     3 kb homopolymers and tandems) at the 10 (k, m, s, a) of
+     oracle_cases.CONFIGS, and a random and a repeat-rich 1 Mbp record
+     at s = 64 and 1000: each card sketch (v1 per file, sketch_fof on
+     v1, v2 and the legacy engine, device_dedup at the golden
+     configurations) byte-equal to OracleSubsampler's, with equal
+     print_stat counters; then OracleComparator, the device engine and
+     the numpy engine on 12 of those sketches and 8 of phase 5's, all-vs-
+     all and in query mode: byte-equal CSVs, and zero eval.norms between
+     the device's and the oracle's. Prints the launches, the oracle's CPU
+     seconds and the card path's seconds.
 After the phases no supersampler_tpu module may have been imported.
 The line before the last is the kernel table, each kernel with its
 time, its plain version's time and its bound (the larger of the bytes
@@ -104,10 +120,11 @@ it must move over the HBM rate and its 32-bit ALU operations over the
 card's scalar peak), the scans also with the batch's time and bound and
 their time on the tile of repeats, the launches of one sharded call
 of phase 6's batch over four entries (mesh_launches), the launches in
-phase 7's runs (fof_launches) and in phase 8's device-dedup sketches
-(dedup_launches), the sweeps (sweep 1
-of the tile resolve) also with the sum over the resolve's five sweeps
-and their bounds and the batch's times; the last line is
+phase 7's runs (fof_launches), in phase 8's device-dedup sketches
+(dedup_launches) and in phase 9's card sketches (oracle_launches), the
+sweeps (sweep 1 of the tile resolve) also with the sum over the
+resolve's five sweeps and their bounds and the batch's times; the last
+line is
 {"ok": true, "device": {...}}.
 Needs one CUDA card; no network.
 """
@@ -2045,6 +2062,228 @@ def phase_dedup(rng, device, workdir, genome, bench_genome, **sizes) -> dict:
     return total
 
 
+# the print_stat counters a sketcher is held to, with its bytes
+COUNTERS = ("read_kmer", "total_kmer_number", "total_superkmer_number",
+            "selected_kmer_number", "selected_superkmer_number",
+            "count_maximal_skmer", "nb_mmer_selected",
+            "seen_kmers_at_reconstruction",
+            "seen_superkmers_at_reconstruction",
+            "seen_max_superkmers_at_reconstruction",
+            "seen_unique_kmers_at_reconstruction",
+            "total_kmer_number_at_reconstruction",
+            "actual_minimizer_number")
+
+
+def oracle_corpus(rng, workdir, n_fuzz=40, big_len=1_000_000):
+    """Phase 9's inputs: n_fuzz multi-record files of
+    tests/oracle_cases.py's shapes (a 3 kb homopolymer or tandem repeat
+    in one file of ten) and two files of one big_len record each,
+    random and repeat-rich. Returns (fuzz paths, big paths, bases)."""
+    oc = load_tests_module("oracle_cases")
+    d = os.path.join(workdir, "oracle")
+    os.makedirs(d)
+    fuzz, bases = [], 0
+    for i in range(n_fuzz):
+        fuzz.append(os.path.join(d, f"fuzz{i}.fa"))
+        bases += oc.fuzz_fasta(rng, fuzz[-1], heavy=oc.fuzz_heavy(i))
+    big = [os.path.join(d, "random.fa"), os.path.join(d, "repeats.fa")]
+    for path, seq in zip(big, (_ACGT[rng.integers(0, 4, big_len)].tobytes(),
+                               oc.repeat_rich(rng, big_len))):
+        with open(path, "wb") as f:
+            f.write(b">big\n" + b"\n".join(
+                seq[j : j + 80] for j in range(0, len(seq), 80)) + b"\n")
+        bases += len(seq)
+    return fuzz, big, bases
+
+
+def phase_oracle(rng, device, workdir, family_sketches, **sizes) -> dict:
+    """Phase 9: the card held to the port's scalar oracle
+    (supersampler_tpu_torch/oracle), which shares no code with the card
+    path but the k-mer store, the counters and the threshold. Inputs
+    (oracle_corpus; sizes are its): 40 fuzz files at every configuration
+    of tests/oracle_cases.py CONFIGS (the 10 golden (k, m, s, a) and
+    (31, 11) at s = 64), and a random and a repeat-rich 1 Mbp record at
+    (31, 11) and s = 64 and 1000. OracleSubsampler sketches each file at
+    each of its configurations once; every card sketch of it must equal
+    that sketch byte for byte, with equal print_stat counters: the
+    default v1 engine (sketch_file per file), sketch_fof over the
+    configuration's files on v1, on v2 (SPSP_FUSED=1) and on the legacy
+    engine, and device_dedup = True (through sketch_fof). Cut: device
+    dedup goes record by record (about 17 ms a record on the card), so it
+    runs at the golden configurations only. Then OracleComparator,
+    TorchComparator's device engine and its numpy engine compare 12 of
+    these sketches (8 fuzz files at (31, 11, 10), the two 1 Mbp records
+    at s = 64 and 1000) and 8 of phase 5's family sketches, all-vs-all
+    and in query mode (-q of 4, precision 3, min_threshold 0.05): the
+    CSVs must be byte-equal, and eval.norms of the device CSVs against
+    the oracle's must give zero norms. The oracle's seconds are CPU
+    seconds of this process. Returns the phase's launches by kernel
+    table key."""
+    from supersampler_tpu_torch.compare.merge import TorchComparator
+    from supersampler_tpu_torch.compare.writers import write_matrix_gz
+    from supersampler_tpu_torch.eval import norms
+    from supersampler_tpu_torch.io.gzip_exact import write_gzip_exact
+    from supersampler_tpu_torch.oracle import (OracleComparator,
+                                               OracleSubsampler)
+    from supersampler_tpu_torch.sketch import TorchSubsampler, sketch_fof
+
+    oc = load_tests_module("oracle_cases")
+    fuzz, big, bases = oracle_corpus(rng, workdir, **sizes)
+    gpu = gpu_line()
+
+    def files_of(cfg):
+        k, m, s, _a = cfg
+        return fuzz + (big if (k, m) == (31, 11) and s in ("64", "1000")
+                       else [])
+
+    def fresh(cfg, cls=TorchSubsampler, **attrs):
+        k, m, s, a = cfg
+        ss = cls(k, m, float(np.float32(s)), a, **(
+            {"device": device} if cls is TorchSubsampler else {}))
+        ss.log = io.StringIO()
+        for name, value in attrs.items():
+            setattr(ss, name, value)
+        return ss
+
+    def result(ss, raw):
+        return raw, tuple(getattr(ss, c) for c in COUNTERS)
+
+    want, t_oracle = {}, {"fuzz": 0.0, "big": 0.0}
+    for cfg in oc.CONFIGS:
+        k, m = cfg[:2]
+        for path in files_of(cfg):
+            t = time.process_time()
+            ss = fresh(cfg, OracleSubsampler)
+            want[path, cfg] = result(ss, ss.sketch_file(path))
+            t_oracle["big" if path in big else "fuzz"] += (
+                time.process_time() - t)
+            if not want[path, cfg][0].startswith(b"%d %d " % (2 * k - m, m)):
+                raise AssertionError(f"oracle: malformed sketch of {path}")
+        if not any(want[p, cfg][1][3] for p in files_of(cfg)):
+            raise AssertionError(f"oracle: nothing selected at {cfg}")
+
+    runs = (("v1", {}, False), ("fof", {}, False), ("v2", {}, True),
+            ("legacy", {"scan_engine": "legacy"}, False),
+            ("dedup", {"device_dedup": True}, False))
+    launches = {name: dict.fromkeys(read_launches(), 0) for name, *_ in runs}
+    walls = dict.fromkeys(launches, 0.0)
+    card, held = {}, 0
+    for name, attrs, v2 in runs:
+        for cfg in oc.CONFIGS:
+            if name == "dedup" and cfg not in oc.GOLDEN_CONFIGS:
+                continue
+            paths = files_of(cfg)
+            reset_launches()
+            t = time.perf_counter()
+            with fused_env() if v2 else nullcontext():
+                if name == "v1":
+                    sss = [fresh(cfg) for _ in paths]
+                    got = [ss.sketch_file(p) for ss, p in zip(sss, paths)]
+                else:
+                    sss = [fresh(cfg, **attrs) for _ in paths]
+                    got = sketch_fof(list(zip(sss, paths)))
+            walls[name] += time.perf_counter() - t
+            for key, n in read_launches().items():
+                launches[name][key] += n
+            for ss, path, raw in zip(sss, paths, got):
+                if result(ss, raw) != want[path, cfg]:
+                    what = ("bytes" if raw != want[path, cfg][0]
+                            else "counters")
+                    raise AssertionError(
+                        f"oracle: {name} {what} of {path} at {cfg} differ "
+                        f"from OracleSubsampler's")
+                held += 1
+                if name == "v1":
+                    card[path, cfg] = raw
+    need = {"v1": ("scan", "sweep"), "fof": ("scan", "sweep"),
+            "v2": ("scan2", "sweep"), "legacy": ("scan", "walk"),
+            "dedup": ("scan", "sweep", "walk")}
+    for name, keys in need.items():
+        if (min(launches[name][n] for n in keys) <= 0
+                or (name != "v2" and launches[name]["scan2"])
+                or (name == "legacy" and launches[name]["sweep"])):
+            raise AssertionError(f"oracle: {name} launches "
+                                 f"{launches[name]}, want {keys}")
+    total = {n: sum(c[n] for c in launches.values()) for n in launches["v1"]}
+    counts = {"scan": total["scan"], "scan2": total["scan2"],
+              "sweep": total["sweep"] - launches["v2"]["sweep"],
+              "sweep_col": launches["v2"]["sweep"], "walk": total["walk"]}
+    n_cfg = sum(len(files_of(c)) for c in oc.CONFIGS)
+    log(f"  {held} card sketches of {len(fuzz) + len(big)} files "
+        f"({bases} bases; {n_cfg} file-configurations over "
+        f"{len(oc.CONFIGS)} (k, m, s, a)) == OracleSubsampler, bytes and "
+        f"counters: v1, sketch_fof, v2, legacy and device_dedup (golden "
+        f"configurations); launches {counts}; oracle "
+        f"{t_oracle['fuzz'] + t_oracle['big']:.3f} CPU s (fuzz "
+        f"{t_oracle['fuzz']:.3f}, 1 Mbp records {t_oracle['big']:.3f}); "
+        f"card path {sum(walls.values()):.3f} s ("
+        + ", ".join(f"{n} {w:.3f}" for n, w in walls.items())
+        + f") [{gpu}]")
+
+    # the comparators on the card's sketches
+    d = os.path.dirname(fuzz[0])
+    sketches = []
+    for path, cfg in ([(p, oc.CONFIGS[0]) for p in fuzz[:8]]
+                      + [(p, c) for p in big for c in oc.CONFIGS
+                         if p in files_of(c)]):
+        sketches.append(os.path.join(
+            d, f"sk_{os.path.basename(path)[:-3]}_s{cfg[2]}.gz"))
+        write_gzip_exact(sketches[-1], card[path, cfg], level=9)
+    files = sketches + family_sketches[:4] + family_sketches[8:12]
+    queries = files[:4]
+    t_cmp = {}
+    for query in (False, True):
+        names = (queries if query else []) + files
+        qs = len(queries) if query else len(files)
+        opts = ({"precision": 3, "min_threshold": 0.05} if query else {})
+        out = {}
+        for name, make in (
+                ("oracle", lambda: OracleComparator(**opts)),
+                ("device", lambda: TorchComparator(engine="device",
+                                                   device=device, **opts)),
+                ("numpy", lambda: TorchComparator(engine="numpy", **opts))):
+            c = make()
+            c.files_names = list(names)
+            t = (time.process_time() if name == "oracle"
+                 else time.perf_counter())
+            with redirect_stdout(io.StringIO()):
+                c.compare_sketches(qs)
+            t_cmp[name, query] = ((time.process_time() if name == "oracle"
+                                   else time.perf_counter()) - t)
+            out[name] = (c.containment_csv(), c.jaccard_csv(), c.score_A,
+                         c.nb_kmer_seen_infile)
+        for name in ("device", "numpy"):
+            if out[name] != out["oracle"]:
+                raise AssertionError(f"oracle: {name} comparator differs "
+                                     f"from OracleComparator (query "
+                                     f"{query})")
+        if not out["oracle"][2]:
+            raise AssertionError("oracle: the compared sketches share "
+                                 "nothing")
+        for i, kind in enumerate(("containment", "jaccard")):
+            paths = {}
+            for name in ("oracle", "device"):
+                paths[name] = os.path.join(d, f"{name}_{kind}_{query}.csv.gz")
+                write_matrix_gz(paths[name], out[name][i])
+            _same_bytes(paths["device"], paths["oracle"],
+                        f"{kind} CSV, device against oracle")
+            dist = norms.compare_matrices(norms.load_matrix(paths["device"]),
+                                          norms.load_matrix(paths["oracle"]))
+            if dist["norm1"] != 0 or dist["norm2"] != 0:
+                raise AssertionError(f"oracle: eval.norms of the {kind} "
+                                     f"CSVs: {dist}")
+    log(f"  comparators on {len(files)} sketches ({len(sketches)} of this "
+        f"phase, 8 of phase 5): OracleComparator == device engine == "
+        f"numpy engine (CSV bytes, score_A, nb_kmer_seen_infile), "
+        f"all-vs-all and {len(queries)}-vs-{len(files)}; eval.norms of "
+        f"the device CSVs against the oracle's: norm1 = norm2 = 0; oracle "
+        f"{t_cmp['oracle', False]:.3f} + {t_cmp['oracle', True]:.3f} CPU "
+        f"s, device {t_cmp['device', False]:.3f} + "
+        f"{t_cmp['device', True]:.3f} s, numpy {t_cmp['numpy', False]:.3f}"
+        f" + {t_cmp['numpy', True]:.3f} s [{gpu}]")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2119,6 +2358,8 @@ def main(argv=None) -> int:
         dedup_counts = phase_dedup(rng, "cuda", tmp,
                                    os.path.join(tmp, "g5.fa"),
                                    bench_genome[0])
+        log("[9] the card against the port's scalar oracle")
+        oracle_counts = phase_oracle(rng, "cuda", tmp, ctx["files"])
     # one sharded call of the 4,096-record batch over four entries
     for key, path, name in (("scan", "v1", "scan"), ("sweep", "v1", "sweep"),
                             ("scan2", "v2", "scan2"),
@@ -2134,6 +2375,9 @@ def main(argv=None) -> int:
     # launches in phase 8's device-dedup sketches (v1 kernels and the walk)
     for key in ("scan", "sweep", "walk"):
         kt[key]["dedup_launches"] = dedup_counts[key]
+    # launches in phase 9's card sketches (every engine, all configurations)
+    for key in ("scan", "scan2", "sweep", "sweep_col", "walk"):
+        kt[key]["oracle_launches"] = oracle_counts[key]
     for name, pre in (("tile", ""), ("1024 x 1 kb batch", "batch_")):
         s1, s2 = kt["scan"], kt["scan2"]
         log(f"  times at the {name}: scan {s1[pre + 'ms']:.4f} ms (plain "
@@ -2176,7 +2420,7 @@ def main(argv=None) -> int:
                                    "batch_all_sweeps_ms", "repeats_ms",
                                    "ms_s1", "one_block_ms",
                                    "mesh_launches", "fof_launches",
-                                   "dedup_launches")
+                                   "dedup_launches", "oracle_launches")
                  if k in r}
         return {"name": name, "route": "cuda",
                 "source": f"supersampler_tpu_torch/csrc/{source}",

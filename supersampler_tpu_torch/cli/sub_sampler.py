@@ -20,10 +20,8 @@ import io
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
-import numpy as np
-
 from supersampler_tpu_torch import default_device
-from supersampler_tpu_torch.core.scalar import format_g6
+from supersampler_tpu_torch.core.scalar import format_g6, parse_rate_arg
 from supersampler_tpu_torch.io.fasta import get_out_name, read_fof
 from supersampler_tpu_torch.io.gzip_exact import write_gzip_exact
 from supersampler_tpu_torch.sketch import (TorchSubsampler, print_stat,
@@ -75,8 +73,7 @@ def main(argv=None) -> int:
     if m > 15:
         print("Minimizer size can't be greater than 15.")
         m = 15
-    # -s parsed with stof (float32) into a double (SubSampler.cpp:698)
-    s = float(np.float32(o["s"]))
+    s = parse_rate_arg(o["s"])
     print(f" I use k={k} m={m} s={format_g6(s)}")
     print(f"Maximal super kmer are of length {2 * k - m} or {k - m + 1} kmers")
     if o["i"]:

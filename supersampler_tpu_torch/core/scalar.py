@@ -1,11 +1,13 @@
-"""Scalar constants and formatting of the SuperSampler data model.
+"""Scalar (pure-Python) primitives of the SuperSampler data model.
 
-The port's copy of what it needs from supersampler_tpu/core/scalar.py:
-the XXHash64 primes and seed, the 2-bit nucleotide code, the FHS
-threshold (80-bit long double, computed by the native library), the
-reference's number formats and its 2-bit blob packer, plus the two
-byte translate tables of the Python k-mer store's super-k-mer intake
-(supersampler_tpu/oracle/subsampler.py:48-52).
+The port's copy of supersampler_tpu/core/scalar.py: the XXHash64 of a
+u64 and the minimizer hash, the 2-bit nucleotide code and its packers,
+reverse complements, the FHS threshold (80-bit long double, computed by
+the native library), the reference's number formats and its 2-bit blob
+packer and unpacker, plus the two byte translate tables of the Python
+k-mer store's super-k-mer intake. The scalar oracle
+(oracle/subsampler.py, oracle/comparator.py) is written on these; all
+integer math is mod 2^64 (or 2^128 for k-mers) like the C++ types.
 """
 
 from __future__ import annotations
@@ -40,9 +42,65 @@ _COMP_BYTES = bytes.maketrans(
     bytes({65: 84, 67: 71, 71: 67, 84: 65}.get(c, 65) for c in range(256)))
 
 
+def rotl64(x: int, r: int) -> int:
+    x &= MASK64
+    return ((x << r) | (x >> (64 - r))) & MASK64
+
+
+def xxhash64_u64(x: int, seed: int = SEED) -> int:
+    """XXHash64 of the 8 little-endian bytes of ``x``.
+
+    Specialization of the general algorithm for an 8-byte input
+    (reference include/xxhash64.h:100-150 with totalLength == 8 < 32:
+    result = seed + Prime5 + 8, one 8-byte round, final avalanche).
+    """
+    h = (seed + PRIME5 + 8) & MASK64
+    single = rotl64((x * PRIME2) & MASK64, 31) * PRIME1 & MASK64
+    h = (rotl64(h ^ single, 27) * PRIME1 + PRIME4) & MASK64
+    h ^= h >> 33
+    h = (h * PRIME2) & MASK64
+    h ^= h >> 29
+    h = (h * PRIME3) & MASK64
+    h ^= h >> 32
+    return h
+
+
+def unrevhash(x: int) -> int:
+    """Minimizer ordering/selection hash (reference utils.cpp:244-249)."""
+    return xxhash64_u64(x, SEED)
+
+
 def nuc2int(c: str) -> int:
     """(c/2)%4 on the ASCII value (reference utils.cpp:13-16)."""
     return (ord(c) // 2) % 4
+
+
+def nuc2intrc(c: str) -> int:
+    """Complement of the 2-bit code = code^2 (reference utils.cpp:20-22)."""
+    return ((ord(c) // 2) % 4) ^ 2
+
+
+def int2nuc(n: int) -> str:
+    return INT2NUC[n]
+
+
+def str2num(s: str) -> int:
+    """Pack a DNA string into a big-endian 2-bit integer
+    (reference utils.cpp:158-165)."""
+    res = 0
+    for ch in s:
+        res = (res << 2) | ((ord(ch) // 2) % 4)
+    return res
+
+
+# ACGT -> base-4 digits; other characters never occur after clean_dna
+_TO_BASE4 = str.maketrans("ACTG", "0123")
+
+
+def str2num_fast(s: str) -> int:
+    """str2num for cleaned (ACGT-only) strings: one base-4 parse in
+    place of a Python loop per nucleotide."""
+    return int(s.translate(_TO_BASE4), 4) if s else 0
 
 
 def num2str(num: int, k: int) -> str:
@@ -52,6 +110,32 @@ def num2str(num: int, k: int) -> str:
         out.append(INT2NUC[num & 3])
         num >>= 2
     return "".join(reversed(out))
+
+
+def revcomp_code(x: int, n: int) -> int:
+    """Reverse complement of an n-mer 2-bit code (the byteswap and
+    swizzle tricks rcbc/rcb, reference utils.cpp:397-462, for any n)."""
+    rc = 0
+    for _ in range(n):
+        rc = (rc << 2) | ((x & 3) ^ 2)
+        x >>= 2
+    return rc
+
+
+def canonize(x: int, n: int) -> int:
+    """min(x, revcomp(x)) (reference utils.cpp:465-472)."""
+    return min(x, revcomp_code(x, n))
+
+
+_COMP_TABLE = str.maketrans(
+    {c: {"A": "T", "C": "G", "G": "C", "T": "A"}.get(c, "A")
+     for c in map(chr, range(256))})
+
+
+def revcomp_str(s: str) -> str:
+    """String reverse complement; non-ACGT maps to 'A'
+    (reference utils.cpp:131-148)."""
+    return s.translate(_COMP_TABLE)[::-1]
 
 
 def str_compressor(s: str) -> bytes:
@@ -81,6 +165,32 @@ def str_compressor(s: str) -> bytes:
     return bytes(out)
 
 
+def str_decompressor(b: bytes) -> str:
+    """Inverse of :func:`str_compressor` (reference utils.cpp:71-111)."""
+    if not b:
+        return ""
+    mod = b[0]
+    last = len(b) if mod == 0 else len(b) - 1
+    out = []
+    for i in range(1, last):
+        p = b[i]
+        out.append(INT2NUC[(p >> 6) & 3])
+        out.append(INT2NUC[(p >> 4) & 3])
+        out.append(INT2NUC[(p >> 2) & 3])
+        out.append(INT2NUC[p & 3])
+    if mod != 0:
+        # the partial byte was shifted one extra time: nucleotide j sits
+        # at bit offset 2 * (mod - j) from the LSB (utils.cpp:100-108)
+        p = b[last]
+        chars = []
+        for _ in range(mod + 1):
+            chars.append(INT2NUC[p & 3])
+            p >>= 2
+        chars.reverse()
+        out.extend(chars[:mod])
+    return "".join(out)
+
+
 def compute_threshold(k: int, m: int, sampling_rate: float) -> int:
     """FHS selection threshold (reference SubSampler.cpp:622-631).
 
@@ -93,6 +203,12 @@ def compute_threshold(k: int, m: int, sampling_rate: float) -> int:
     from supersampler_tpu_torch.native import threshold_native
 
     return threshold_native(k, m, sampling_rate)
+
+
+def parse_rate_arg(s: str) -> float:
+    """The reference parses -s with stof (32-bit float) into a double
+    (reference SubSampler.cpp:698-699); replicate the float32 rounding."""
+    return float(np.float32(s))
 
 
 def format_double(x: float) -> str:

@@ -3,15 +3,18 @@
 The port's copy of what it needs from supersampler_tpu/io/fasta.py. The
 reference reads records with getLineFasta (reference utils.cpp:706-718):
 discard the current line, then concatenate lines until the next '>' or
-EOF; clean_dna (utils.cpp:675-702, done by the native clean+pack here)
-strips every non-ACGT character, joining the flanks.
+EOF; clean_dna (utils.cpp:675-702) strips every non-ACGT character,
+joining the flanks (chimeric k-mers across N runs, replicated), and
+uppercases. The sketch pipeline streams spans (stream_fasta_spans) and
+cleans them in C (native.py); the scalar oracle reads whole records
+through iter_fasta_records and the Python clean_dna below.
 """
 
 from __future__ import annotations
 
 import gzip
 import io
-from typing import List
+from typing import Iterator, List
 
 from supersampler_tpu_torch.utils.profiling import phase
 
@@ -25,6 +28,50 @@ def open_maybe_gzip(path: str) -> io.BufferedReader:
     if magic == b"\x1f\x8b":
         return gzip.open(f, "rb")  # type: ignore[return-value]
     return f
+
+
+_UPPER_TRANS = bytes.maketrans(b"acgt", b"ACGT")
+_DELETE_NON_ACGT = bytes(c for c in range(256) if c not in b"ACGTacgt")
+
+
+def clean_dna(s: bytes) -> bytes:
+    """Strip non-ACGT and uppercase (reference utils.cpp:675-702) in one
+    translate call."""
+    return s.translate(_UPPER_TRANS, _DELETE_NON_ACGT)
+
+
+def iter_fasta_raw(path: str) -> Iterator[bytes]:
+    """Yield each record's raw body (header line dropped, newlines
+    embedded), one per getLineFasta call: a header right after a header
+    yields an empty body, never a slice that ends before it starts."""
+    with open_maybe_gzip(path) as f:
+        data = f.read()
+    pos = 0
+    n = len(data)
+    while pos < n:
+        nl = data.find(b"\n", pos)   # discard the current (header) line
+        if nl < 0:
+            yield b""
+            break
+        nxt = data.find(b"\n>", nl)
+        if nxt < 0:
+            body = data[nl + 1:]
+            pos = n
+        else:
+            body = data[nl + 1 : max(nxt, nl + 1)]
+            pos = nxt + 1
+        yield body
+
+
+def iter_fasta_records(path: str) -> Iterator[bytes]:
+    """Yield cleaned sequences as the reference's read loop does
+    (reference SubSampler.cpp:334-347 + utils.cpp:706-718): one item per
+    getLineFasta call, possibly empty; the caller applies the length-k
+    filter. Newlines are non-ACGT, so cleaning a whole body joins its
+    lines as the reference's line loop does (a '>' ends a record only
+    at the start of a line)."""
+    for body in iter_fasta_raw(path):
+        yield clean_dna(body)
 
 
 def stream_fasta_spans(path: str, window_bytes: int = 4 << 20,

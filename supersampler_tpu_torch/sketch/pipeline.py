@@ -57,8 +57,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from supersampler_tpu_torch.core.scalar import (MASK64, compute_threshold,
-                                                format_double)
+from supersampler_tpu_torch.core.scalar import MASK64, format_double
 from supersampler_tpu_torch.io.fasta import stream_fasta_spans
 from supersampler_tpu_torch.native import (NativeFinisher,
                                            clean_pack_batch_native,
@@ -81,7 +80,7 @@ from supersampler_tpu_torch.ops.field import (_HEAD, _pow2_ge, field_carry,
 from supersampler_tpu_torch.ops.minimizer import (scan_tables_2d_packed,
                                                   succ_tables)
 from supersampler_tpu_torch.ops.walker import DeviceChain
-from supersampler_tpu_torch.sketch.store import KmerStore
+from supersampler_tpu_torch.sketch.store import KmerStore, SubsamplerState
 from supersampler_tpu_torch.utils.profiling import device_trace, phase
 
 # tile geometry: sequences longer than one tile stream through fixed
@@ -358,39 +357,6 @@ class FieldChain(_TileChain):
         if self._dedup:
             self._take_uniques(dc.uniques_list[0], dc.n_kmers)
         return comp, dc.n_sel, nxt
-
-
-class SubsamplerState:
-    """The parameters, FHS threshold and print_stat counters of a
-    sketcher: what the port needs of the JAX package's scalar spec
-    (supersampler_tpu/oracle/subsampler.py OracleSubsampler)."""
-
-    def __init__(self, k: int = 31, m: int = 11, s: float = 1000.0,
-                 abundance: int = 1):
-        self.k = k
-        self.m = m
-        self.s = s
-        self.abundance = abundance
-        self.max_superkmer_size = k - m + 1
-        self.threshold = compute_threshold(k, m, s)
-        # diagnostics stream; the CLI's fof mode points it at a buffer
-        self.log = None
-        self._reset_stats()
-
-    def _reset_stats(self):
-        self.total_kmer_number = 0
-        self.total_superkmer_number = 0
-        self.selected_kmer_number = 0
-        self.selected_superkmer_number = 0
-        self.count_maximal_skmer = 0
-        self.nb_mmer_selected = 0
-        self.seen_kmers_at_reconstruction = 0
-        self.seen_superkmers_at_reconstruction = 0
-        self.seen_max_superkmers_at_reconstruction = 0
-        self.seen_unique_kmers_at_reconstruction = 0
-        self.total_kmer_number_at_reconstruction = 0
-        self.actual_minimizer_number = 0
-        self.read_kmer = 0
 
 
 class TorchSubsampler(SubsamplerState, KmerStore):

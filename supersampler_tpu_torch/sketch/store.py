@@ -1,5 +1,6 @@
-"""The Python k-mer store: bucket intake, greedy reconstruction and
-serialization.
+"""A sketcher's host state: its parameters and counters
+(SubsamplerState) and the Python k-mer store (KmerStore): bucket
+intake, greedy reconstruction and serialization.
 
 The port's copy of the scalar spec's store (supersampler_tpu/oracle/
 subsampler.py:54-351), with the reference semantics it replicates:
@@ -13,10 +14,14 @@ subsampler.py:54-351), with the reference semantics it replicates:
 * k-mer counts are uint8 and wrap (SubSampler.h:24);
 * reconstruction probes A, T, C, G in that order (SubSampler.cpp:568).
 
-It takes intake when the native C finisher does not: on the device-dedup
-path (``ops/dedup.py`` ``merge_unique_host`` fills ``minimizer_map``)
-and with ``native_finisher = False`` (``handle_superkmer`` per selected
-super-k-mer). Not thread-safe: one thread fills and serializes a store.
+Both sketchers build on these two classes: the scalar oracle
+(oracle/subsampler.py), whose every super-k-mer goes through
+``handle_superkmer``, and TorchSubsampler (sketch/pipeline.py), where
+the store takes intake when the native C finisher does not: on the
+device-dedup path (``ops/dedup.py`` ``merge_unique_host`` fills
+``minimizer_map``) and with ``native_finisher = False``
+(``handle_superkmer`` per selected super-k-mer). Not thread-safe: one
+thread fills and serializes a store.
 """
 
 from __future__ import annotations
@@ -25,8 +30,42 @@ import struct
 from typing import Dict, List, Optional
 
 from supersampler_tpu_torch.core.scalar import (_B4_BYTES, _COMP_BYTES,
+                                                compute_threshold,
                                                 format_double, nuc2int,
                                                 num2str, str_compressor)
+
+
+class SubsamplerState:
+    """The parameters, FHS threshold and print_stat counters of a
+    sketcher (supersampler_tpu/oracle/subsampler.py OracleSubsampler's
+    __init__ and _reset_stats)."""
+
+    def __init__(self, k: int = 31, m: int = 11, s: float = 1000.0,
+                 abundance: int = 1):
+        self.k = k
+        self.m = m
+        self.s = s
+        self.abundance = abundance
+        self.max_superkmer_size = k - m + 1
+        self.threshold = compute_threshold(k, m, s)
+        # diagnostics stream; the CLI's fof mode points it at a buffer
+        self.log = None
+        self._reset_stats()
+
+    def _reset_stats(self):
+        self.total_kmer_number = 0
+        self.total_superkmer_number = 0
+        self.selected_kmer_number = 0
+        self.selected_superkmer_number = 0
+        self.count_maximal_skmer = 0
+        self.nb_mmer_selected = 0
+        self.seen_kmers_at_reconstruction = 0
+        self.seen_superkmers_at_reconstruction = 0
+        self.seen_max_superkmers_at_reconstruction = 0
+        self.seen_unique_kmers_at_reconstruction = 0
+        self.total_kmer_number_at_reconstruction = 0
+        self.actual_minimizer_number = 0
+        self.read_kmer = 0
 
 
 class KmerInfo:
@@ -41,7 +80,7 @@ class KmerInfo:
 class KmerStore:
     """Mixin: the k-mer store of a sketcher. The host class gives the
     parameters (k, m, s, abundance, max_superkmer_size), the print_stat
-    counters (sketch/pipeline.py SubsamplerState) and
+    counters (SubsamplerState) and
     ``minimizer_map``, an empty dict: minimizer -> {oriented k-mer ->
     KmerInfo}."""
 

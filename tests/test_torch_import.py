@@ -3,10 +3,11 @@
 A fresh interpreter imports every module of supersampler_tpu_torch,
 sketches a small FASTA on the CPU (alone, through device dedup and the
 Python k-mer store, and as a fof through sketch_fof, reading the phase
-timers), runs the sub_sampler CLI (-i and -f) and the
-comparator CLI over the family goldens and the multi-device dry run
-(parallel/dryrun.py, with parallel/mesh.py and parallel/dist.py) over
-two CPU entries; ``jax`` and
+timers) and with the port's scalar oracle (the same bytes), runs the
+sub_sampler CLI (-i and -f), the comparator CLI over the family goldens,
+the norms CLI (eval/norms.py) over the comparator's CSVs and the
+multi-device dry run (parallel/dryrun.py, with parallel/mesh.py and
+parallel/dist.py) over two CPU entries; ``jax`` and
 ``supersampler_tpu`` / ``supersampler_tpu.*`` are then still absent
 from sys.modules. The port's copies of the host layer are held to their
 JAX-package originals."""
@@ -36,8 +37,10 @@ REPO = os.getcwd()
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 30, names
+assert len(names) >= 44, names
 from supersampler_tpu_torch.cli import comparator, sub_sampler
+from supersampler_tpu_torch.eval import norms
+from supersampler_tpu_torch.oracle import OracleSubsampler
 from supersampler_tpu_torch.sketch import TorchSubsampler
 rng = random.Random(5)
 with tempfile.TemporaryDirectory() as tmp:
@@ -48,6 +51,7 @@ with tempfile.TemporaryDirectory() as tmp:
             .encode() + b"\\n" for i, n in enumerate((3000, 500, 40)))))
     raw = TorchSubsampler(k=31, m=11, s=10.0, device="cpu").sketch_file(path)
     assert raw and raw.split(b" ", 1)[0] == b"51", raw[:40]
+    assert OracleSubsampler(k=31, m=11, s=10.0).sketch_file(path) == raw
     for flag, value in (("device_dedup", True), ("native_finisher", False)):
         ss = TorchSubsampler(k=31, m=11, s=10.0, device="cpu")
         setattr(ss, flag, value)
@@ -77,6 +81,10 @@ with tempfile.TemporaryDirectory() as tmp:
         rc = comparator.main(["-f", "fof.txt"])
     assert rc == 0 and "I found 4 documents" in out.getvalue()
     assert os.path.getsize("results_jaccard.csv.gz") > 0
+    with contextlib.redirect_stdout(out):
+        rc = norms.main(["results_containment.csv.gz",
+                         "results_jaccard.csv.gz"])
+    assert rc == 0 and "norm1 = " in out.getvalue()
 from supersampler_tpu_torch.parallel import dist, dryrun, mesh
 dryrun.dryrun_multichip(2, devices=["cpu"] * 2)
 assert dist.process_info() == (0, 1) and mesh.make_mesh(["cpu"]).size == 1
