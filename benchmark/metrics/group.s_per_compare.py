@@ -1,0 +1,8 @@
+"""group.s_per_compare: seconds in the comparator's group step (the entry's
+span around it) per comparison in the traced window."""
+
+from benchmark.readings import span_s_per_call
+
+
+def read(run):
+    return span_s_per_call(run, "group")
