@@ -18,10 +18,20 @@ accumulates pairwise counts, either on the host ("numpy") or as the
 presence matmul S = P^T P on a torch device ("device",
 parallel/compare_dist.py), on one device or over a mesh
 (parallel/mesh.py). Counterpart of supersampler_tpu/compare/merge.py.
+
+Under a torch.profiler session each comparison records its spans on
+utils/profiling.py's tracer: the root ``compare.call`` (with
+``device_trace("compare")`` around it), ``compare.open``,
+``compare.decode`` (parallel/compare_dist.py; per file ``decode.read``,
+``decode.buckets``, ``decode.rows``, ``decode.kmers``,
+``decode.dedup``), ``compare.group`` (``group.sort``), ``compare.score``
+(``score.h2d``, ``score.product``, ``score.fetch``), ``compare.tally``,
+and ``compare.csv`` for each CSV.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 from typing import Dict, List, Optional, Set
@@ -38,6 +48,7 @@ from supersampler_tpu_torch.io.fasta import read_fof
 from supersampler_tpu_torch.parallel.compare_dist import (
     decode_files, group_pairs, score_matrix_device, scores_to_dict)
 from supersampler_tpu_torch.parallel.mesh import make_mesh
+from supersampler_tpu_torch.utils.profiling import device_trace, phase
 
 ENGINES = ("numpy", "device")
 
@@ -73,6 +84,16 @@ def pair_scores_numpy(gid: np.ndarray, fids: np.ndarray,
         return {}
     uniq, cnt = np.unique(np.concatenate(keys_all), return_counts=True)
     return dict(zip(uniq.tolist(), cnt.tolist()))
+
+
+def _comparison(method):
+    """Run a comparison method as the root span ``compare.call``, under
+    ``device_trace("compare")``."""
+    @functools.wraps(method)
+    def traced(*args, **kwargs):
+        with device_trace("compare"), phase("compare.call"):
+            return method(*args, **kwargs)
+    return traced
 
 
 class TorchComparator:
@@ -120,19 +141,21 @@ class TorchComparator:
         # Unopenable sketches print the reference's message and drop out
         # of the comparison; surviving files take compacted indices
         # (reference Comparator.cpp:45-51 + utils.cpp:357-364).
-        opened: List[str] = []
-        for path in self.files_names:
-            try:
-                with open(path, "rb"):
-                    pass
-            except OSError:
-                print("Problem with file opening")
-                continue
-            opened.append(path)
-        self.query_size = query_size
-        self.nb_files = len(opened)
-        return opened
+        with phase("compare.open"):
+            opened: List[str] = []
+            for path in self.files_names:
+                try:
+                    with open(path, "rb"):
+                        pass
+                except OSError:
+                    print("Problem with file opening")
+                    continue
+                opened.append(path)
+            self.query_size = query_size
+            self.nb_files = len(opened)
+            return opened
 
+    @_comparison
     def compare_sketches(self, query_size: int) -> None:
         opened = self._open_files(query_size)
         (mins, his, los, fids, self.nb_kmer_seen_infile, k, m,
@@ -143,6 +166,7 @@ class TorchComparator:
         self._score_pairs(mins, his, los, fids, query_size,
                           query_minimizers)
 
+    @_comparison
     def compare_sketches_chunked(self, query_size: int,
                                  chunk_bytes: int = 64 << 20,
                                  resume_path: Optional[str] = None,
@@ -188,18 +212,19 @@ class TorchComparator:
         for idx, chunk, offsets in chunk_rounds(streams, chunk_bytes):
             mins_l, his_l, los_l, fids_l = [], [], [], []
             qmins: Set[int] = set()
-            for f, buckets in enumerate(chunk):
-                if f < query_size:
-                    qmins.update(b[0] for b in buckets)
-                if not buckets:
-                    continue
-                mins, his, los = decode_bucket_pairs(buckets,
-                                                     self.k, self.m)
-                self.nb_kmer_seen_infile[f] += int(mins.size)
-                mins_l.append(mins)
-                his_l.append(his)
-                los_l.append(los)
-                fids_l.append(np.full(mins.size, f, dtype=np.int64))
+            with phase("compare.decode"):
+                for f, buckets in enumerate(chunk):
+                    if f < query_size:
+                        qmins.update(b[0] for b in buckets)
+                    if not buckets:
+                        continue
+                    mins, his, los = decode_bucket_pairs(buckets,
+                                                         self.k, self.m)
+                    self.nb_kmer_seen_infile[f] += int(mins.size)
+                    mins_l.append(mins)
+                    his_l.append(his)
+                    los_l.append(los)
+                    fids_l.append(np.full(mins.size, f, dtype=np.int64))
             if mins_l:
                 mins = np.concatenate(mins_l)
                 his = np.concatenate(his_l)
@@ -243,11 +268,14 @@ class TorchComparator:
             score = score_matrix_device(
                 gid.astype(np.int32), fids.astype(np.int32),
                 int(gid[-1]) + 1, n, self.mesh)
-            add = scores_to_dict(score, query_size)
         else:
-            add = pair_scores_numpy(gid, fids, n)
-        for key, v in add.items():
-            self.score_A[key] = self.score_A.get(key, 0) + v
+            with phase("compare.score"):
+                add = pair_scores_numpy(gid, fids, n)
+        with phase("compare.tally"):
+            if self.engine == "device":
+                add = scores_to_dict(score, query_size)
+            for key, v in add.items():
+                self.score_A[key] = self.score_A.get(key, 0) + v
 
     # ------------------------------------------------------------------
     def _header_names(self) -> List[str]:
@@ -257,15 +285,18 @@ class TorchComparator:
         n = self.nb_files or len(self.files_names)
         return self.files_names[:n]
 
+    def _csv(self, jaccard: bool) -> str:
+        with phase("compare.csv"):
+            return matrix_csv(self._header_names(), self.score_A,
+                              self.nb_kmer_seen_infile, self.query_size,
+                              self.precision, self.min_threshold,
+                              jaccard=jaccard)
+
     def containment_csv(self) -> str:
-        return matrix_csv(self._header_names(), self.score_A,
-                          self.nb_kmer_seen_infile, self.query_size,
-                          self.precision, self.min_threshold, jaccard=False)
+        return self._csv(jaccard=False)
 
     def jaccard_csv(self) -> str:
-        return matrix_csv(self._header_names(), self.score_A,
-                          self.nb_kmer_seen_infile, self.query_size,
-                          self.precision, self.min_threshold, jaccard=True)
+        return self._csv(jaccard=True)
 
     def write_outputs(self, output_name: str = "results") -> None:
         write_matrix_gz(f"{output_name}_containment.csv.gz",

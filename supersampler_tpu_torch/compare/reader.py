@@ -18,6 +18,7 @@ import numpy as np
 
 from supersampler_tpu_torch.core.scalar import NUC2INT_LUT
 from supersampler_tpu_torch.io.fasta import open_maybe_gzip
+from supersampler_tpu_torch.utils.profiling import count, phase
 
 U64 = np.uint64
 _0 = U64(0)
@@ -167,66 +168,74 @@ def decode_bucket_pairs(buckets, k: int, m: int):
     max_rows: List[np.ndarray] = []
     max_bids: List[np.ndarray] = []
     plain = {}   # row length -> (bids list, rows list)
-    for bid, (mval, blob, lines) in enumerate(buckets):
-        bucket_minimizers.append(mval)
-        mcodes = np.empty(m, dtype=np.uint8)
-        v = mval
-        for j in range(m - 1, -1, -1):
-            mcodes[j] = v & 3
-            v >>= 2
-        codes = blob_to_codes(blob)
-        n_sk = codes.size // (2 * half) if half > 0 else 0
-        if n_sk > 0:
-            halves = codes[: n_sk * 2 * half].reshape(n_sk, 2 * half)
-            rows = np.concatenate(
-                [halves[:, :half],
-                 np.broadcast_to(mcodes, (n_sk, m)),
-                 halves[:, half:]], axis=1)
-            max_rows.append(rows)
-            max_bids.append(np.full(n_sk, bid, np.int64))
-        for i in range(0, len(lines), 2):
-            left = NUC2INT_LUT[np.frombuffer(lines[i], dtype=np.uint8)]
-            right = NUC2INT_LUT[np.frombuffer(lines[i + 1],
-                                              dtype=np.uint8)]
-            seq = np.concatenate([left, mcodes, right])
-            if seq.size >= k:
-                bids, rows = plain.setdefault(seq.size, ([], []))
-                bids.append(bid)
-                rows.append(seq)
+    with phase("decode.rows"):
+        for bid, (mval, blob, lines) in enumerate(buckets):
+            bucket_minimizers.append(mval)
+            mcodes = np.empty(m, dtype=np.uint8)
+            v = mval
+            for j in range(m - 1, -1, -1):
+                mcodes[j] = v & 3
+                v >>= 2
+            codes = blob_to_codes(blob)
+            n_sk = codes.size // (2 * half) if half > 0 else 0
+            if n_sk > 0:
+                halves = codes[: n_sk * 2 * half].reshape(n_sk, 2 * half)
+                rows = np.concatenate(
+                    [halves[:, :half],
+                     np.broadcast_to(mcodes, (n_sk, m)),
+                     halves[:, half:]], axis=1)
+                max_rows.append(rows)
+                max_bids.append(np.full(n_sk, bid, np.int64))
+            for i in range(0, len(lines), 2):
+                left = NUC2INT_LUT[np.frombuffer(lines[i], dtype=np.uint8)]
+                right = NUC2INT_LUT[np.frombuffer(lines[i + 1],
+                                                  dtype=np.uint8)]
+                seq = np.concatenate([left, mcodes, right])
+                if seq.size >= k:
+                    bids, rows = plain.setdefault(seq.size, ([], []))
+                    bids.append(bid)
+                    rows.append(seq)
 
     bid_l: List[np.ndarray] = []
     his_l: List[np.ndarray] = []
     los_l: List[np.ndarray] = []
-    if max_rows:
-        rows = np.concatenate(max_rows)
-        bids = np.concatenate(max_bids)
-        hi, lo = canonical_kmers(rows, k)
-        nw = hi.shape[1]
-        bid_l.append(np.repeat(bids, nw))
-        his_l.append(hi.ravel())
-        los_l.append(lo.ravel())
-    for size, (bids, rows) in plain.items():
-        arr = np.stack(rows)
-        hi, lo = canonical_kmers(arr, k)
-        nw = hi.shape[1]
-        bid_l.append(np.repeat(np.asarray(bids, np.int64), nw))
-        his_l.append(hi.ravel())
-        los_l.append(lo.ravel())
-    if not bid_l:
-        z = np.zeros(0, dtype=U64)
-        return z, z.copy(), z.copy()
+    with phase("decode.kmers"):
+        if max_rows:
+            rows = np.concatenate(max_rows)
+            bids = np.concatenate(max_bids)
+            hi, lo = canonical_kmers(rows, k)
+            nw = hi.shape[1]
+            bid_l.append(np.repeat(bids, nw))
+            his_l.append(hi.ravel())
+            los_l.append(lo.ravel())
+        for size, (bids, rows) in plain.items():
+            arr = np.stack(rows)
+            hi, lo = canonical_kmers(arr, k)
+            nw = hi.shape[1]
+            bid_l.append(np.repeat(np.asarray(bids, np.int64), nw))
+            his_l.append(hi.ravel())
+            los_l.append(lo.ravel())
 
-    bids = np.concatenate(bid_l)
-    his = np.concatenate(his_l)
-    los = np.concatenate(los_l)
-    # global dedup per (bucket, kmer)
-    order = np.lexsort((los, his, bids))
-    bids, his, los = bids[order], his[order], los[order]
-    keep = np.ones(his.size, dtype=bool)
-    keep[1:] = ((bids[1:] != bids[:-1]) | (his[1:] != his[:-1])
-                | (los[1:] != los[:-1]))
-    bids, his, los = bids[keep], his[keep], los[keep]
-    mins = np.asarray(bucket_minimizers, dtype=U64)[bids]
+    with phase("decode.dedup"):
+        if bid_l:
+            bids = np.concatenate(bid_l)
+            his = np.concatenate(his_l)
+            los = np.concatenate(los_l)
+            n_windows = his.size
+            # global dedup per (bucket, kmer)
+            order = np.lexsort((los, his, bids))
+            bids, his, los = bids[order], his[order], los[order]
+            keep = np.ones(his.size, dtype=bool)
+            keep[1:] = ((bids[1:] != bids[:-1]) | (his[1:] != his[:-1])
+                        | (los[1:] != los[:-1]))
+            bids, his, los = bids[keep], his[keep], los[keep]
+            mins = np.asarray(bucket_minimizers, dtype=U64)[bids]
+        else:
+            n_windows = 0
+            mins = np.zeros(0, dtype=U64)
+            his, los = mins.copy(), mins.copy()
+    count("decode.windows", n_windows)
+    count("decode.pairs", mins.size)
     return mins, his, los
 
 
@@ -234,8 +243,10 @@ def decode_sketch_pairs(path: str):
     """Decode a whole sketch to distinct (minimizer, kmer_hi, kmer_lo)
     arrays. Returns (mins u64[], hi u64[], lo u64[], k, m,
     minimizer_set)."""
-    sk = SketchFile(path)
-    buckets = list(sk.iter_buckets())
+    with phase("decode.read"):
+        sk = SketchFile(path)
+    with phase("decode.buckets"):
+        buckets = list(sk.iter_buckets())
     mins, his, los = decode_bucket_pairs(buckets, sk.k, sk.m)
     return (mins, his, los, sk.k, sk.m,
             set(b[0] for b in buckets))

@@ -15,6 +15,11 @@ Counterpart of supersampler_tpu/parallel/compare_dist.py: the product,
 an XLA ``jnp.dot`` there, is ``torch._int_mm`` here (cuBLASLt's int8 x
 int8 -> int32 path on CUDA), exact in integers; the final sum stands in
 for the JAX mesh's all-reduce.
+
+Counters (utils/profiling.py, in a profiler session):
+``decode.windows`` (k-mer windows before the dedup) and
+``decode.pairs`` (after it), counted in compare/reader.py, and
+``score.h2d_bytes``.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 
 from supersampler_tpu_torch.compare.reader import decode_sketch_pairs
 from supersampler_tpu_torch.parallel.mesh import Mesh
+from supersampler_tpu_torch.utils.profiling import count, phase
 
 
 def decode_files(files: List[str], query_size: int = None):
@@ -36,28 +42,29 @@ def decode_files(files: List[str], query_size: int = None):
     minimizers are the bucket minimizers of files [0, query_size), or
     None when query_size covers every file (all-vs-all: no filter).
     """
-    n = len(files)
-    if query_size is None:
-        query_size = n
-    mins_l, his_l, los_l, fids_l = [], [], [], []
-    nb_seen = [0] * n
-    query_minimizers: Set[int] = set()
-    k = m = 0
-    for f, path in enumerate(files):
-        mins, his, los, k, m, bucket_mins = decode_sketch_pairs(path)
-        nb_seen[f] = int(mins.size)
-        mins_l.append(mins)
-        his_l.append(his)
-        los_l.append(los)
-        fids_l.append(np.full(mins.size, f, dtype=np.int64))
-        if f < query_size:
-            query_minimizers |= bucket_mins
-    if not files:
-        mins_l = his_l = los_l = [np.zeros(0, np.uint64)]
-        fids_l = [np.zeros(0, np.int64)]
-    return (np.concatenate(mins_l), np.concatenate(his_l),
-            np.concatenate(los_l), np.concatenate(fids_l), nb_seen, k, m,
-            query_minimizers if query_size < n else None)
+    with phase("compare.decode"):
+        n = len(files)
+        if query_size is None:
+            query_size = n
+        mins_l, his_l, los_l, fids_l = [], [], [], []
+        nb_seen = [0] * n
+        query_minimizers: Set[int] = set()
+        k = m = 0
+        for f, path in enumerate(files):
+            mins, his, los, k, m, bucket_mins = decode_sketch_pairs(path)
+            nb_seen[f] = int(mins.size)
+            mins_l.append(mins)
+            his_l.append(his)
+            los_l.append(los)
+            fids_l.append(np.full(mins.size, f, dtype=np.int64))
+            if f < query_size:
+                query_minimizers |= bucket_mins
+        if not files:
+            mins_l = his_l = los_l = [np.zeros(0, np.uint64)]
+            fids_l = [np.zeros(0, np.int64)]
+        return (np.concatenate(mins_l), np.concatenate(his_l),
+                np.concatenate(los_l), np.concatenate(fids_l), nb_seen, k, m,
+                query_minimizers if query_size < n else None)
 
 
 def group_pairs(mins, his, los, fids,
@@ -68,17 +75,22 @@ def group_pairs(mins, his, los, fids,
     is given (query mode), sorts by (minimizer, k-mer, file) and numbers
     the groups. Returns (group ids int64, file ids), both in that order:
     group ids are non-decreasing and file ids ascend within a group."""
-    if query_minimizers is not None:
-        qm = np.array(sorted(query_minimizers), dtype=np.uint64)
-        keep = np.isin(mins, qm)
-        mins, his, los, fids = mins[keep], his[keep], los[keep], fids[keep]
-    order = np.lexsort((fids, los, his, mins))
-    mins, his, los, fids = mins[order], his[order], los[order], fids[order]
-    new_group = np.ones(mins.size, dtype=bool)
-    if mins.size:
-        new_group[1:] = ((mins[1:] != mins[:-1]) | (his[1:] != his[:-1])
-                         | (los[1:] != los[:-1]))
-    return np.cumsum(new_group) - 1, fids
+    with phase("compare.group"):
+        if query_minimizers is not None:
+            qm = np.array(sorted(query_minimizers), dtype=np.uint64)
+            keep = np.isin(mins, qm)
+            mins, his, los, fids = (mins[keep], his[keep], los[keep],
+                                    fids[keep])
+        with phase("group.sort"):
+            order = np.lexsort((fids, los, his, mins))
+            mins, his, los, fids = (mins[order], his[order], los[order],
+                                    fids[order])
+        new_group = np.ones(mins.size, dtype=bool)
+        if mins.size:
+            new_group[1:] = ((mins[1:] != mins[:-1]) | (his[1:] != his[:-1])
+                             | (los[1:] != los[:-1]))
+        gids = np.cumsum(new_group) - 1
+    return gids, fids
 
 
 def build_presence_chunks(files: List[str], query_size: int = None):
@@ -147,34 +159,40 @@ def score_matrix_device(gids: np.ndarray, fids: np.ndarray, n_groups: int,
     summed once, on the first entry's device, at the end. The result
     depends neither on the mesh nor on the step size. Returns the N x N
     int64 score matrix on the host."""
-    devices = mesh.devices
-    if n_groups == 0 or fids.size == 0:
-        return np.zeros((n_files, n_files), dtype=np.int64)
-    n_dev = len(devices)
-    chunk_groups = step_groups(n_groups, n_files, chunk_groups, n_dev)
-    n_slices = -(-n_groups // chunk_groups)
-    n_pad = padded_files(n_files)
-    # gids are sorted: one searchsorted gives every slice's pairs
-    edges = np.searchsorted(gids, np.arange(n_slices + 1) * chunk_groups)
-    blocks = [torch.empty((n_pad, chunk_groups), dtype=torch.int8,
-                          device=dev) for dev in devices]
-    ones = [torch.ones((), dtype=torch.int8, device=dev) for dev in devices]
-    totals = [torch.zeros((n_pad, n_pad), dtype=torch.int64, device=dev)
-              for dev in devices]
-    # slice i is entry i % n_dev's part of step i // n_dev; the last
-    # step's entries past the groups multiply zero blocks, as JAX's do
-    for i in range(-(-n_slices // n_dev) * n_dev):
-        d = i % n_dev
-        s, e = (int(edges[min(i, n_slices)]),
-                int(edges[min(i + 1, n_slices)]))
-        dev = devices[d]
-        rows = torch.from_numpy(gids[s:e] - i * chunk_groups).to(dev)
-        cols = torch.from_numpy(fids[s:e]).to(dev)
-        blocks[d].zero_()
-        blocks[d].index_put_((cols, rows), ones[d])
-        totals[d] += presence_product(blocks[d])
-    total = sum(t.to(devices[0]) for t in totals[1:]) + totals[0]
-    return total[:n_files, :n_files].cpu().numpy()
+    with phase("compare.score"):
+        devices = mesh.devices
+        if n_groups == 0 or fids.size == 0:
+            return np.zeros((n_files, n_files), dtype=np.int64)
+        n_dev = len(devices)
+        chunk_groups = step_groups(n_groups, n_files, chunk_groups, n_dev)
+        n_slices = -(-n_groups // chunk_groups)
+        n_pad = padded_files(n_files)
+        # gids are sorted: one searchsorted gives every slice's pairs
+        edges = np.searchsorted(gids, np.arange(n_slices + 1) * chunk_groups)
+        blocks = [torch.empty((n_pad, chunk_groups), dtype=torch.int8,
+                              device=dev) for dev in devices]
+        ones = [torch.ones((), dtype=torch.int8, device=dev)
+                for dev in devices]
+        totals = [torch.zeros((n_pad, n_pad), dtype=torch.int64, device=dev)
+                  for dev in devices]
+        # slice i is entry i % n_dev's part of step i // n_dev; the last
+        # step's entries past the groups multiply zero blocks, as JAX's do
+        for i in range(-(-n_slices // n_dev) * n_dev):
+            d = i % n_dev
+            s, e = (int(edges[min(i, n_slices)]),
+                    int(edges[min(i + 1, n_slices)]))
+            dev = devices[d]
+            with phase("score.h2d"):
+                rows = torch.from_numpy(gids[s:e] - i * chunk_groups).to(dev)
+                cols = torch.from_numpy(fids[s:e]).to(dev)
+            count("score.h2d_bytes", rows.nbytes + cols.nbytes)
+            with phase("score.product"):
+                blocks[d].zero_()
+                blocks[d].index_put_((cols, rows), ones[d])
+                totals[d] += presence_product(blocks[d])
+        with phase("score.fetch"):
+            total = sum(t.to(devices[0]) for t in totals[1:]) + totals[0]
+            return total[:n_files, :n_files].cpu().numpy()
 
 
 def scores_to_dict(score: np.ndarray, query_size: int) -> Dict[int, int]:
