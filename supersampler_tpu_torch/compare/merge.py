@@ -22,9 +22,8 @@ parallel/compare_dist.py), on one device or over a mesh
 Under a torch.profiler session each comparison records its spans on
 utils/profiling.py's tracer: the root ``compare.call`` (with
 ``device_trace("compare")`` around it), ``compare.open``,
-``compare.decode`` (parallel/compare_dist.py; per file ``decode.read``,
-``decode.buckets``, ``decode.rows``, ``decode.kmers``,
-``decode.dedup``), ``compare.group`` (``group.sort``), ``compare.score``
+``compare.decode`` (parallel/compare_dist.py; per file ``decode.read``
+and ``decode.pass``), ``compare.group`` (``group.sort``), ``compare.score``
 (``score.h2d``, ``score.product``, ``score.fetch``), ``compare.tally``,
 and ``compare.csv`` for each CSV.
 """

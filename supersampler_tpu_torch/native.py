@@ -3,11 +3,13 @@
 The port's copy of what it uses from supersampler_tpu/native.py: the
 long-double FHS threshold, the one-pass clean + 2-bit pack of a record
 or of a chunk's records, and the C finisher (k-mer store,
-reconstruction, serialization). The threshold and the finisher come
-from the repo's shared ``csrc/spsp_native.c`` and ``csrc/spsp_finish.c``;
-the clean + pack from the port's own ``supersampler_tpu_torch/csrc/spsp_io.c``,
+reconstruction, serialization); and the port's own sketch decode for
+the comparator. The threshold and the finisher come from the repo's
+shared ``csrc/spsp_native.c`` and ``csrc/spsp_finish.c``; the clean +
+pack from the port's own ``supersampler_tpu_torch/csrc/spsp_io.c``,
 whose fast path strips every non-ACGT byte as the reference does (the
-shared copy keeps a few, see that file). They compile with the system
+shared copy keeps a few, see that file); the decode from
+``supersampler_tpu_torch/csrc/spsp_decode.c``. They compile with the system
 C compiler into the port's own ``build/libspsp_torch_native.so`` at
 first use, and again when a source is newer than the library. A failed
 build raises: there are no Python fallbacks.
@@ -26,7 +28,8 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 _ROOT = os.path.dirname(_PKG)
 _SOURCES = [os.path.join(_ROOT, "csrc", "spsp_native.c"),
             os.path.join(_ROOT, "csrc", "spsp_finish.c"),
-            os.path.join(_PKG, "csrc", "spsp_io.c")]
+            os.path.join(_PKG, "csrc", "spsp_io.c"),
+            os.path.join(_PKG, "csrc", "spsp_decode.c")]
 _LIB = os.path.join(_ROOT, "build", "libspsp_torch_native.so")
 
 _lock = threading.Lock()
@@ -92,6 +95,8 @@ def get_lib() -> ctypes.CDLL:
         lib.spsp_clean_pack.argtypes = [_P, _I64, _P, _P, _I64, _I64]
         lib.spsp_clean_pack_batch.argtypes = (
             [_P] + [_P] * 2 + [_I64] + [_P] * 6)
+        lib.spsp_decode_pairs.restype = _I64
+        lib.spsp_decode_pairs.argtypes = [_P, _I64, _I64, _I, _I] + [_P] * 5
         _lib = lib
         return _lib
 
@@ -205,3 +210,38 @@ def clean_pack_batch_native(data_view, starts, ends, ref_pool,
         pack_pool.ctypes.data, pack_offs.ctypes.data,
         padded.ctypes.data, out_lens.ctypes.data)
     return out_lens
+
+
+def decode_pairs_native(data: bytes, pos0: int, k: int, m: int):
+    """Every bucket of the sketch payload ``data[pos0:]`` decoded to its
+    distinct canonical k-mers in one C pass
+    (supersampler_tpu_torch/csrc/spsp_decode.c spsp_decode_pairs).
+
+    Returns (mins u64[], hi u64[], lo u64[], bucket minimizers u64[],
+    windows): buckets in file order, then (hi, lo) ascending; windows
+    counts the k-mers before the per-bucket dedup. Raises ValueError
+    for a bucket cut short or malformed, and for k or m the pass cannot
+    hold (k above 64 or m above 32)."""
+    if not (1 <= m <= 32 and 1 <= k <= 64):
+        raise ValueError(f"sketch header gives k={k}, m={m}: the decode "
+                         "takes 1 <= k <= 64 and 1 <= m <= 32")
+    lib = get_lib()
+    info = np.zeros(4, np.int64)
+    buf = ctypes.c_char_p(data)
+    args = (buf, pos0, len(data), k, m)
+    rc = lib.spsp_decode_pairs(*args, None, None, None, None,
+                               info.ctypes.data)
+    if rc == 0:
+        windows, nb = int(info[0]), int(info[2])
+        mins, hi, lo = (np.empty(windows, np.uint64) for _ in range(3))
+        bmins = np.empty(nb, np.uint64)
+        rc = lib.spsp_decode_pairs(
+            *args, mins.ctypes.data, hi.ctypes.data, lo.ctypes.data,
+            bmins.ctypes.data, info.ctypes.data)
+    if rc == -1:
+        raise ValueError("sketch bucket cut short or malformed at byte "
+                         f"{int(info[3])} of the inflated sketch")
+    if rc != 0:
+        raise MemoryError("the sketch decode ran out of memory")
+    n = int(info[1])
+    return mins[:n], hi[:n], lo[:n], bmins, windows

@@ -18,8 +18,8 @@ for the JAX mesh's all-reduce.
 
 Counters (utils/profiling.py, in a profiler session):
 ``decode.windows`` (k-mer windows before the dedup) and
-``decode.pairs`` (after it), counted in compare/reader.py, and
-``score.h2d_bytes``.
+``decode.pairs`` (after it), counted in compare/reader.py's native
+pass, and ``score.h2d_bytes``.
 """
 
 from __future__ import annotations
@@ -48,7 +48,8 @@ def decode_files(files: List[str], query_size: int = None):
             query_size = n
         mins_l, his_l, los_l, fids_l = [], [], [], []
         nb_seen = [0] * n
-        query_minimizers: Set[int] = set()
+        query_minimizers: Optional[Set[int]] = (set() if query_size < n
+                                                else None)
         k = m = 0
         for f, path in enumerate(files):
             mins, his, los, k, m, bucket_mins = decode_sketch_pairs(path)
@@ -57,14 +58,14 @@ def decode_files(files: List[str], query_size: int = None):
             his_l.append(his)
             los_l.append(los)
             fids_l.append(np.full(mins.size, f, dtype=np.int64))
-            if f < query_size:
+            if query_minimizers is not None and f < query_size:
                 query_minimizers |= bucket_mins
         if not files:
             mins_l = his_l = los_l = [np.zeros(0, np.uint64)]
             fids_l = [np.zeros(0, np.int64)]
         return (np.concatenate(mins_l), np.concatenate(his_l),
                 np.concatenate(los_l), np.concatenate(fids_l), nb_seen, k, m,
-                query_minimizers if query_size < n else None)
+                query_minimizers)
 
 
 def group_pairs(mins, his, los, fids,

@@ -7,10 +7,12 @@ integers, strings and bytes. Inputs are the repo's goldens, or made
 from a seed."""
 
 import glob
+import gzip
 import io
 import json
 import os
 import random
+import struct
 
 import numpy as np
 import pytest
@@ -70,6 +72,170 @@ def test_decode_sketch_pairs_matches_jax(name):
     for a, b in zip(got[:3], want[:3], strict=True):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     assert got[3:] == want[3:] and got[0].size > 0
+
+
+def _same_pairs(got, want):
+    for a, b in zip(got[:3], want[:3], strict=True):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert got[3:] == want[3:]
+
+
+def _blob(rng, codes, garbage):
+    """str_compressor's layout of a code array; garbage sets the two
+    bits below a partial byte's codes, which the decode must ignore."""
+    n = codes.size
+    if n == 0:
+        return b""
+    mod, nfull = n % 4, n // 4
+    g = codes[: 4 * nfull].reshape(-1, 4).astype(np.uint8)
+    out = bytes([mod]) + ((g[:, 0] << 6) | (g[:, 1] << 4) | (g[:, 2] << 2)
+                          | g[:, 3]).tobytes()
+    if mod:
+        c = sum(int(v) << (2 * (mod - j))
+                for j, v in enumerate(codes[4 * nfull:]))
+        out += bytes([c | (int(rng.integers(0, 4)) if garbage else 0)])
+    return out
+
+
+_LINE_BYTES = np.frombuffer(b"ACGTACGTACGTacgtNnRY.*", np.uint8)
+
+
+def _made_up_sketch(rng, k, m, n_buckets):
+    """Wire bytes of a sketch (reference SubSampler.cpp:456-504) with
+    every kind of bucket: blobs of 0 to several super-k-mers plus 0-3
+    leftover codes, empty blobs, plaintext pairs shorter than, equal to
+    and longer than k with non-ACGT bytes, and super-k-mers and lines
+    that repeat within their bucket."""
+    half = k - m
+    out = [f"{2 * k - m} {m} 0 10.000000\n".encode()]
+    mvals = np.sort(rng.choice(4 ** min(m, 12), n_buckets, replace=False))
+    for mval in mvals.tolist():
+        out.append(bytes(b"ACTG"[(mval >> (2 * (m - 1 - j))) & 3]
+                         for j in range(m)))
+        kind = int(rng.integers(0, 4))
+        n_sk = 0 if kind == 0 else int(rng.integers(1, 5))
+        codes = rng.integers(0, 4, n_sk * 2 * half + int(rng.integers(0, 4)))
+        if kind == 3 and n_sk > 1:    # a super-k-mer again
+            codes[2 * half: 4 * half] = codes[: 2 * half]
+        blob = _blob(rng, codes, garbage=bool(rng.integers(0, 2)))
+        out += [struct.pack("<I", len(blob)), blob]
+        pairs = []
+        for _ in range(int(rng.integers(0, 4))):
+            total = k - m + int(rng.integers(-3, 4))
+            left = int(rng.integers(0, max(total, 0) + 1))
+            pairs.append(tuple(
+                _LINE_BYTES[rng.integers(0, _LINE_BYTES.size, n)].tobytes()
+                for n in (left, max(total - left, 0))))
+        if pairs and kind == 3:
+            pairs.append(pairs[0])
+        for left, right in pairs:
+            if left or right:
+                out += [left, b"\n", right, b"\n"]
+        out.append(b"\n\n")
+    return b"".join(out)
+
+
+@pytest.mark.parametrize("k,m", [(15, 5), (21, 7), (31, 11), (32, 11),
+                                 (33, 13), (63, 15), (64, 16)])
+@pytest.mark.parametrize("seed", range(3))
+def test_decode_made_up_sketches_matches_jax(tmp_path, k, m, seed):
+    """The native pass against the JAX reader on seeded made-up sketches,
+    plain and gzipped, and decode_bucket_pairs over the file's parsed
+    buckets against the whole-file decode."""
+    rng = np.random.default_rng(1000 * k + seed)
+    data = _made_up_sketch(rng, k, m, 40)
+    path = tmp_path / f"s{k}.gz"
+    path.write_bytes(gzip.compress(data))
+    plain = tmp_path / f"s{k}.txt"
+    plain.write_bytes(data)
+    got = TR.decode_sketch_pairs(str(path))
+    _same_pairs(got, JR.decode_sketch_pairs(str(path)))
+    _same_pairs(TR.decode_sketch_pairs(str(plain)), got)
+    assert got[0].size > 0 and got[1].any() == (k > 32)
+    buckets, pos = [], data.index(b"\n") + 1
+    while pos + m <= len(data):
+        bucket, pos = TR.parse_bucket_at(data, pos, m)
+        buckets.append(bucket)
+    assert len(buckets) == 40
+    assert set(b[0] for b in buckets) == got[5]
+    whole = TR.decode_bucket_pairs(buckets, k, m)
+    _same_pairs(whole, got[:3])
+    _same_pairs(whole, JR.decode_bucket_pairs(buckets, k, m))
+    # a chunk of the buckets, as the chunked comparator decodes them
+    part = TR.decode_bucket_pairs(buckets[5:9], k, m)
+    _same_pairs(part, JR.decode_bucket_pairs(buckets[5:9], k, m))
+
+
+def test_decode_repeats_and_header_only(tmp_path):
+    """A bucket of one super-k-mer three times and one line pair twice
+    keeps each k-mer once; a header-only sketch decodes to nothing."""
+    k, m = 21, 7
+    rng = np.random.default_rng(5)
+    sk = rng.integers(0, 4, 2 * (k - m))
+    blob = _blob(rng, np.concatenate([sk, sk, sk]), garbage=False)
+    line = b"ACGTTGCAACGTTGCAAC"
+    data = (f"{2 * k - m} {m} 0 10.000000\n".encode() + b"ACGTACG"
+            + struct.pack("<I", len(blob)) + blob
+            + b"".join([line, b"\n", line, b"\n"] * 2) + b"\n\n")
+    path = tmp_path / "rep.txt"
+    path.write_bytes(data)
+    got = TR.decode_sketch_pairs(str(path))
+    _same_pairs(got, JR.decode_sketch_pairs(str(path)))
+    assert got[0].size == len(set(zip(got[1].tolist(), got[2].tolist())))
+    assert got[0].size <= (k - m + 1) + (2 * len(line) + m - k + 1)
+    path.write_bytes(f"{2 * k - m} {m} 0 10.000000\n".encode())
+    got = TR.decode_sketch_pairs(str(path))
+    _same_pairs(got, JR.decode_sketch_pairs(str(path)))
+    assert got[0].size == 0 and got[5] == set()
+
+
+@pytest.mark.parametrize("k,m", [(21, 7), (63, 15)])
+def test_decode_large_low_complexity_bucket(tmp_path, k, m):
+    """Thousands of k-mers in one bucket, most of them sharing their
+    leading bases and many equal: the per-bucket sort's crowded bins."""
+    rng = np.random.default_rng(k)
+    n_sk = 400
+    codes = np.where(rng.random(n_sk * 2 * (k - m)) < 0.9, 0,
+                     rng.integers(0, 4, n_sk * 2 * (k - m)))
+    blob = _blob(rng, codes, garbage=False)
+    data = (f"{2 * k - m} {m} 0 10.000000\n".encode() + b"A" * m
+            + struct.pack("<I", len(blob)) + blob + b"\n\n")
+    path = tmp_path / "low.txt"
+    path.write_bytes(data)
+    got = TR.decode_sketch_pairs(str(path))
+    _same_pairs(got, JR.decode_sketch_pairs(str(path)))
+    assert 1000 < got[0].size < n_sk * (k - m + 1)
+
+
+@pytest.mark.parametrize("name", ["sketch_big_k31_m11_s100_a1.gz",
+                                  "sketch_repeat_k31_m11_s2_a2.gz",
+                                  "sketch_big_k15_m5_s50_a1.gz"])
+def test_decode_truncated_sketch_as_jax(tmp_path, name):
+    """A golden's inflated bytes cut at every offset: where the JAX
+    reader returns, the pass returns the same arrays (a cut inside a
+    bucket's first m bytes ends the walk); where it raises, the pass
+    raises ValueError naming the offset."""
+    with gzip.open(os.path.join(_GOLD, name)) as f:
+        data = f.read()
+    path = str(tmp_path / "cut.txt")
+    returned = raised = 0
+    for cut in range(len(data) + 1):
+        with open(path, "wb") as f:
+            f.write(data[:cut])
+        try:
+            want = JR.decode_sketch_pairs(path)
+        except (ValueError, IndexError, struct.error):
+            with pytest.raises(ValueError):
+                TR.decode_sketch_pairs(path)
+            raised += 1
+            continue
+        _same_pairs(TR.decode_sketch_pairs(path), want)
+        returned += 1
+    assert returned > 10 and raised > 10
+    with open(path, "wb") as f:
+        f.write(data[:-1])
+    with pytest.raises(ValueError, match=r"at byte \d+"):
+        TR.decode_sketch_pairs(path)
 
 
 @pytest.mark.parametrize("chunk_bytes", [1 << 10, 1 << 14, 1 << 30])

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from supersampler_tpu_torch.compare.merge import TorchComparator
+from supersampler_tpu_torch.compare.stream import BucketStream, chunk_rounds
 from supersampler_tpu_torch.sketch import TorchSubsampler
 from supersampler_tpu_torch.utils.profiling import (PhaseTimers,
                                                     device_trace, timers)
@@ -93,14 +94,11 @@ def test_phase_timers_lose_no_update_under_threads():
 
 _GOLD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 _FAMILY = [f"gfam_fam{i}.gz" for i in range(4)]
-_DECODE = ("decode.read", "decode.buckets", "decode.rows", "decode.kmers",
-           "decode.dedup")
+_DECODE = ("decode.read", "decode.pass")
 # every span of a comparison but the root, and the span it must sit in
 _PARENT = {"compare.open": "compare.call", "compare.decode": "compare.call",
-           "decode.read": "compare.decode",
-           "decode.buckets": "compare.decode",
-           "decode.rows": "compare.decode", "decode.kmers": "compare.decode",
-           "decode.dedup": "compare.decode", "compare.group": "compare.call",
+           "decode.read": "compare.decode", "decode.pass": "compare.decode",
+           "compare.group": "compare.call",
            "group.sort": "compare.group", "compare.score": "compare.call",
            "score.h2d": "compare.score", "score.product": "compare.score",
            "score.fetch": "compare.score", "compare.tally": "compare.call"}
@@ -180,7 +178,8 @@ def test_comparison_span_tree(family):
 @pytest.mark.parametrize("engine", ["device", "numpy"])
 def test_chunked_comparison_spans(family, engine):
     """The chunked engine: one root, each chunk's decode as a
-    ``compare.decode`` with the per-chunk steps inside it."""
+    ``compare.decode`` with one ``decode.pass`` inside it for each file
+    that has buckets in the chunk."""
     with _session():
         _compare(family, engine, chunk_bytes=1024)
     spans = timers.spans()
@@ -188,10 +187,11 @@ def test_chunked_comparison_spans(family, engine):
     root, = [s for s in spans if s.name == "compare.call"]
     assert {s.call for s in spans} == {root.span}
     names = collections.Counter(s.name for s in spans)
-    assert "decode.read" not in names and "decode.buckets" not in names
-    assert names["decode.rows"] == names["decode.kmers"] \
-        == names["decode.dedup"] > len(family)
-    assert names["compare.decode"] >= 2
+    chunks = list(chunk_rounds([BucketStream(f) for f in family], 1024))
+    assert "decode.read" not in names
+    assert names["decode.pass"] == sum(
+        1 for _i, per_file, _o in chunks for b in per_file if b) > len(family)
+    assert names["compare.decode"] == len(chunks) >= 2
     for s in spans:
         if s.name.startswith("decode."):
             assert by_id[s.parent].name == "compare.decode"
@@ -246,7 +246,7 @@ def test_record_function_ranges_reach_the_profiler(family, tmp_path,
     _compare(family, chunk_bytes=16384)
     with open(trace / "compare.json") as f:
         events = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert {"compare.call", "compare.decode", "decode.rows"} <= events
+    assert {"compare.call", "compare.decode", "decode.pass"} <= events
 
 
 def test_no_spans_or_counters_outside_a_session(family):
