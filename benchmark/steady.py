@@ -3,11 +3,14 @@ never for the result.
 
 Each run logs the CPUs it may use and those local to the card (from
 nvidia-smi's bus id and sysfs), a fixed single-thread probe before and
-after the window, the load average, and the card's clocks and power. The study in PERF.md (section 6, PR 18) tried
-pinning to the card's CPUs, fixed thread counts, inputs flushed in
-set-up, the collector run and frozen before the window, glibc keeping
-freed memory and a shorter interpreter switch interval in the run's
-process; none narrowed the spread of the runs, so none is applied.
+after the window, the load average, the process's CPU seconds so far
+(their rise over the window against its length says whether a slow
+run did its work more slowly or waited), and the card's clocks and
+power. The studies in PERF.md (section 6) tried pinning to the card's
+CPUs, fixed thread counts, inputs flushed in set-up, the collector run
+and frozen before the window, glibc keeping freed memory, a shorter
+interpreter switch interval, a longer warm-up and outputs held once;
+none narrowed the spread of the runs, so none is applied.
 """
 
 from __future__ import annotations
@@ -111,6 +114,8 @@ def card_state() -> str:
 
 def host_line(tag: str) -> str:
     la = os.getloadavg()
+    cpu = os.times()
     return (f"host {tag}: probe {cpu_probe_ms():.3f} ms, loadavg "
-            f"{la[0]:.2f} {la[1]:.2f} {la[2]:.2f}; card "
+            f"{la[0]:.2f} {la[1]:.2f} {la[2]:.2f}; process CPU "
+            f"{cpu.user + cpu.system:.2f} s; card "
             f"(sm MHz, mem MHz, W, limit, C) {card_state()}")

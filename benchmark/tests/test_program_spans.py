@@ -19,9 +19,8 @@ from supersampler_tpu_torch.utils.profiling import Count, Span
 CPU = torch.device("cpu")
 SEED = 2 ** 31 + 4242
 CELL = "bact_genomes.allvsall100"
-NEW = ("decode.read.s_per_compare", "decode.buckets.s_per_compare",
-       "decode.rows.s_per_compare", "decode.kmers.s_per_compare",
-       "decode.dedup.s_per_compare", "group.sort.s_per_compare",
+NEW = ("decode.read.s_per_compare", "decode.pass.s_per_compare",
+       "group.sort.s_per_compare",
        "csv.s_per_compare", "score.h2d_mb_per_compare",
        "decode.pairs_per_window", "device.idle_pct.outside_spans")
 
@@ -164,7 +163,7 @@ def test_tiny_traced_comparison_reads_every_new_metric(root):
             assert got[name] > 0, name
     assert got["decode.pairs_per_window"] <= 1
     parts = sum(got[f"decode.{p}.s_per_compare"]
-                for p in ("read", "buckets", "rows", "kmers", "dedup"))
+                for p in ("read", "pass"))
     # the children sit inside the entry's own span around the decode
     assert parts < got["decode.s_per_compare"]
     assert got["group.sort.s_per_compare"] < got["group.s_per_compare"]
