@@ -43,7 +43,7 @@ def control_numbers(root, workload, seed, device, broken="forward_strand"):
     ctx = Ctx(cfg, traffic, seed, device, None)
     entry = _load(root, "entries", traffic["entry"]).Entry(ctx)
     with tempfile.TemporaryDirectory(prefix="spspcontrol-") as tmp:
-        ctx.inputs = gen.make(cfg, traffic, seed, device, tmp)
+        ctx.inputs = gen.make(cfg, traffic, seed, device, tmp, root)
     entry.paths = [i.path[: -len(".fa")] + ".sketch.gz" for i in ctx.inputs]
     t = cfg["tool"]
     if broken == "forward_strand":

@@ -1,5 +1,8 @@
-"""The benchmark's one input generator: genomes, strains and read sets
-made from the seed, on the device, written as FASTA.
+"""The benchmark's input generator: genomes, strains and read sets made
+from the seed, on the device, written as FASTA. Any other input kind is
+a file of its own, benchmark/inputs/<kind>.py, with
+``make(cfg, traffic, seed, device, out_dir)`` returning ``Input``s; it
+may build on the helpers here.
 
 Every seed makes the same work: sizes come from fixed grids in a fixed
 order (genome lengths evenly spaced over the configuration's range,
@@ -167,6 +170,19 @@ def read_set(cfg: dict, traffic: dict, seed: int, device,
 KINDS = {"genomes": genomes, "reads": read_set}
 
 
-def make(cfg: dict, traffic: dict, seed: int, device, out_dir: str) -> list:
-    """Every input file of a cell, by the configuration's input kind."""
-    return KINDS[cfg["inputs"]["kind"]](cfg, traffic, seed, device, out_dir)
+def make(cfg: dict, traffic: dict, seed: int, device, out_dir: str,
+         root: str) -> list:
+    """Every input file of a cell, by the configuration's input kind:
+    one of KINDS, or else ``make`` of benchmark/inputs/<kind>.py in the
+    tree at root."""
+    kind = cfg["inputs"]["kind"]
+    if kind in KINDS:
+        return KINDS[kind](cfg, traffic, seed, device, out_dir)
+    path = os.path.join(root, "benchmark", "inputs", kind + ".py")
+    if not os.path.isfile(path):
+        raise ValueError(f"input kind {kind!r} is neither built in "
+                         f"({', '.join(KINDS)}) nor a file: no {path}")
+    from benchmark.run import _load
+
+    return _load(root, "inputs", kind).make(cfg, traffic, seed, device,
+                                            out_dir)

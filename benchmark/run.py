@@ -7,8 +7,9 @@ from the root of a checkout, on a machine with the cards the cell asks
 for. Everything a cell is made of is found by name: its entry in
 BENCHMARK.json names a configuration (benchmark/configs/<name>.json)
 and a traffic mix (benchmark/traffic/<name>.json); the traffic names
-the entry that drives the program (benchmark/entries/<entry>.py); each
-metric is read by benchmark/metrics/<metric name>.py.
+the entry that drives the program (benchmark/entries/<entry>.py); an
+input kind that gen.py does not build is benchmark/inputs/<kind>.py;
+each metric is read by benchmark/metrics/<metric name>.py.
 
 A run: the card and the program; inputs made from the seed on the card and written
 under $TMPDIR; the entry's set-up and one warm-up call, all counted in
@@ -139,7 +140,7 @@ def run_cell(root, workload, seed, seconds, trace, device, t_start=None):
     entry = _load(root, "entries", traffic["entry"]).Entry(ctx)
     tmp = tempfile.mkdtemp(prefix="spspbench-")
     try:
-        ctx.inputs = gen.make(cfg, traffic, seed, device, tmp)
+        ctx.inputs = gen.make(cfg, traffic, seed, device, tmp, root)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
             torch.cuda.reset_peak_memory_stats(device)

@@ -1,11 +1,14 @@
 """The harness on the CPU at tiny sizes: every cell runs and is correct;
-a configuration, a traffic mix and a metric added as new files are
-taken up; the timed path broken underneath makes ``correct`` false; the
-control fails its check; nothing loads JAX or the JAX package."""
+a configuration, an input kind, a traffic mix and a metric added as new
+files are cut and taken up; the timed path broken underneath makes
+``correct`` false; the control fails its check; nothing loads JAX or
+the JAX package."""
 
 import ast
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -47,50 +50,157 @@ def test_every_cell_runs_correct(root, trace):
         assert set(want) <= got, (w, want, got)
 
 
-def test_new_files_are_taken_up(root, tmp_path):
-    """A configuration, a traffic mix and a metric reader, each a new
-    file, plus their entries in BENCHMARK.json: no existing file of the
-    benchmark is edited."""
-    new = tiny.make(str(tmp_path / "grown"))
-    b = os.path.join(new, "benchmark")
-    before = _tree(b)
-    with open(os.path.join(b, "configs", "bact_genomes.json")) as f:
-        cfg = json.load(f)
-    cfg["name"] = "small_genomes"
-    cfg["inputs"].update(length_min=10000, length_max=12000)
-    with open(os.path.join(b, "configs", "small_genomes.json"), "w") as f:
-        json.dump(cfg, f)
-    with open(os.path.join(b, "traffic", "pairs.json"), "w") as f:
-        json.dump({"entry": "sketch", "call": "sketch_fof", "genomes": 2,
-                   "files_per_call": 2, "limits": {
-                       "sketches_missing": 0, "pairs_missing": 0,
-                       "pairs_extra": 0, "kept_count_gap": 0}}, f)
-    with open(os.path.join(b, "metrics", "calls.count.py"), "w") as f:
-        f.write("def read(run):\n    return float(len(run.calls))\n")
-    with open(os.path.join(new, "BENCHMARK.json")) as f:
+# A cell added as new files alone: a configuration of genomes that each
+# carry one plasmid shared by all, made by an input kind of its own,
+# compared all against all by the existing compare entry; full sizes
+# that the CPU could not hold, each file with its own cut.
+_GROWN = {
+    "configs/plasmid_genomes.json": {
+        "name": "plasmid_genomes",
+        "tool": {"k": 31, "m": 11, "s": 1000.0, "abundance": 1},
+        "inputs": {"kind": "with_plasmid", "chromosome": 5000000,
+                   "plasmid": 100000, "line_width": 80},
+        "cpu_test": {"tool": {"s": 20.0},
+                     "inputs": {"chromosome": 20000, "plasmid": 3000}}},
+    "traffic/plasmids.json": {
+        "entry": "compare", "genomes": 24,
+        "comparator": {"precision": 6, "min_threshold": 0.0},
+        "limits": {"csv_cells_wrong": 0}, "cpu_test": {"genomes": 3}},
+    "inputs/with_plasmid.py": (
+        "import os\n"
+        "import numpy as np\n"
+        "import torch\n"
+        "from benchmark import gen\n\n\n"
+        "def make(cfg, traffic, seed, device, out_dir):\n"
+        "    g = gen.generator(seed, device)\n"
+        "    inp = cfg['inputs']\n"
+        "    plasmid = gen.random_bases(inp['plasmid'], g, device)\n"
+        "    out = []\n"
+        "    for b in range(traffic['genomes']):\n"
+        "        chrom = gen.random_bases(inp['chromosome'], g, device)\n"
+        "        path = os.path.join(out_dir, f'g{b:03d}.fa')\n"
+        "        w = inp['line_width']\n"
+        "        gen.write(path, gen.fasta_record('chr', chrom, w)\n"
+        "                  + gen.fasta_record('pl', plasmid, w))\n"
+        "        seq = torch.cat([chrom, plasmid]).cpu().numpy()\n"
+        "        out.append(gen.Input(path, seq, np.array(\n"
+        "            [0, chrom.numel(), seq.size], np.int64)))\n"
+        "    return out\n"),
+    "metrics/calls.per_window.py": (
+        "def read(run):\n    return float(len(run.calls))\n"),
+}
+_CELL = "plasmid_genomes.plasmids"
+
+
+def _grow(dst):
+    """A copy of the repo's benchmark tree at dst, grown by _GROWN's
+    files and their entries in BENCHMARK.json. Returns
+    {relative path: bytes} of the copy's benchmark/ before it grew."""
+    shutil.copytree(os.path.join(tiny.REPO, "benchmark"),
+                    os.path.join(dst, "benchmark"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(tiny.REPO, "BENCHMARK.json"), dst)
+    before = _tree(os.path.join(dst, "benchmark"))
+    for rel, body in _GROWN.items():
+        path = os.path.join(dst, "benchmark", rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(body if isinstance(body, str) else json.dumps(body))
+    with open(os.path.join(dst, "BENCHMARK.json")) as f:
         bench = json.load(f)
-    bench["configs"].append({"name": "small_genomes", "source": "x",
-                             "file": "benchmark/configs/small_genomes.json",
-                             "reduced": [], "why": "x"})
-    bench["workloads"].append({"name": "small_genomes.pairs",
-                               "config": "small_genomes", "traffic": "pairs",
-                               "chips": 1, "why": "x"})
+    bench["configs"].append({
+        "name": "plasmid_genomes", "source": "x",
+        "file": "benchmark/configs/plasmid_genomes.json", "reduced": [],
+        "why": "x"})
+    bench["workloads"].append({"name": _CELL, "config": "plasmid_genomes",
+                               "traffic": "plasmids", "chips": 1,
+                               "why": "x"})
     next(m for m in bench["end_to_end"]
-         if m["name"] == "sketch_mbases_s")["workloads"].append(
-        "small_genomes.pairs")
-    bench["end_to_end"].append({"name": "calls.count", "unit": "calls",
-                                "better": "higher", "bound": 0.25,
-                                "source": "host_clock",
-                                "workloads": ["small_genomes.pairs"]})
-    with open(os.path.join(new, "BENCHMARK.json"), "w") as f:
+         if m["name"] == "compare_s")["workloads"].append(_CELL)
+    bench["per_layer"].append({
+        "name": "calls.per_window", "unit": "calls", "better": "higher",
+        "source": "host_clock", "layer": "harness", "moves": "compare_s",
+        "workloads": [_CELL]})
+    with open(os.path.join(dst, "BENCHMARK.json"), "w") as f:
         json.dump(bench, f)
-    r = run.run_cell(new, "small_genomes.pairs", SEED, 0.2, 0, CPU)
-    assert r["correct"]
-    assert set(r["metrics"]) == {"sketch_mbases_s", "calls.count",
-                                 "setup_s"}
-    assert r["metrics"]["calls.count"]["value"] == r["attempted"]
-    after = _tree(b)
+    return before
+
+
+def test_a_configuration_is_added_as_new_files(tmp_path):
+    """A configuration, an input kind, a traffic mix and a reader, each
+    a new file, plus their entries in BENCHMARK.json: tiny.make cuts the
+    new cell by the files' own blocks, it runs correct on the CPU, and
+    no existing file of the benchmark is edited."""
+    grown = str(tmp_path / "grown")
+    before = _grow(grown)
+    cut = tiny.make(str(tmp_path / "cut"), grown)
+    with open(os.path.join(cut, "benchmark", "configs",
+                           "plasmid_genomes.json")) as f:
+        assert json.load(f)["inputs"]["chromosome"] == 20000
+    for trace, want in ((0, {"compare_s", "setup_s"}),
+                        (1, {"calls.per_window"})):
+        r = run.run_cell(cut, _CELL, SEED, 0.2, trace, CPU)
+        assert r["correct"] and r["failed"] == 0
+        assert set(r["metrics"]) == want
+    assert r["metrics"]["calls.per_window"]["value"] == r["attempted"]
+    assert r["checks"]["csv_cells_wrong"]["value"] == 0
+    after = _tree(os.path.join(grown, "benchmark"))
     assert all(after[p] == data for p, data in before.items())
+
+
+@pytest.mark.parametrize("rel", ["configs/bact_genomes.json",
+                                 "traffic/allvsall100.json"])
+def test_a_used_file_without_its_cut_is_refused(tmp_path, rel):
+    grown = str(tmp_path / "grown")
+    _grow(grown)
+    path = os.path.join(grown, "benchmark", rel)
+    with open(path) as f:
+        d = json.load(f)
+    del d["cpu_test"]
+    with open(path, "w") as f:
+        json.dump(d, f)
+    with pytest.raises(ValueError, match=os.path.basename(rel)):
+        tiny.make(str(tmp_path / "cut"), grown)
+
+
+def test_the_cut_blocks_change_no_input(root, tmp_path):
+    """For one seed, every cell's inputs are the same bytes with the
+    "cpu_test" blocks there and taken out."""
+    from benchmark import gen
+
+    for w in tiny.workloads(root):
+        _w, cfg, traffic, _e, _p = run.cell(root, w)
+        made = []
+        for strip in (False, True):
+            if strip:
+                cfg, traffic = ({k: v for k, v in d.items()
+                                 if k != "cpu_test"} for d in (cfg, traffic))
+            out = tmp_path / f"{w}.{strip}"
+            out.mkdir()
+            inputs = gen.make(cfg, traffic, SEED, CPU, str(out), root)
+            made.append([(os.path.basename(i.path),
+                          open(i.path, "rb").read(), i.starts.tolist())
+                         for i in inputs])
+        assert made[0] == made[1], w
+
+
+def test_an_unknown_input_kind_names_its_file(root, tmp_path):
+    from benchmark import gen
+
+    cfg = {"inputs": {"kind": "nosuch"}}
+    want = os.path.join(root, "benchmark", "inputs", "nosuch.py")
+    with pytest.raises(ValueError, match=re.escape(want)):
+        gen.make(cfg, {}, SEED, CPU, str(tmp_path), root)
+
+
+def test_nothing_that_runs_on_the_chip_reads_the_cuts():
+    bdir = os.path.join(tiny.REPO, "benchmark")
+    for dp, ds, fs in os.walk(bdir):
+        ds[:] = [d for d in ds if d != "tests"]
+        for f in fs:
+            if f.endswith(".py"):
+                with open(os.path.join(dp, f)) as fh:
+                    assert "cpu_test" not in fh.read(), f
 
 
 def _tree(top):

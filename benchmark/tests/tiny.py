@@ -1,9 +1,10 @@
-"""A copy of the benchmark at sizes a CPU test can hold: genomes of
-20-30 kb, 400 reads, a few files, s = 20 (at s = 1000 such genomes keep
-almost nothing). The copy's BENCHMARK.json also holds the cells that
-PERF.md keeps for later (later_cells.json: fof32, isolate30x,
-per_genome, their metrics), so their traffic, entry and readers stay
-tested."""
+"""A copy of the benchmark at sizes a CPU test can hold. Each
+configuration and traffic file that a cell uses carries its own cut
+under the key "cpu_test" (a dict value updates that key one level deep,
+a scalar replaces it; {} means already small), so a cell added as new
+files is cut with no edit here. The copy's BENCHMARK.json also holds the
+cells that PERF.md keeps for later (tests/later_cells.json), so their
+traffic, entry and readers stay tested."""
 
 import json
 import os
@@ -13,45 +14,51 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def _edit(path, **upd):
+def _load(path):
     with open(path) as f:
-        d = json.load(f)
-    for key, val in upd.items():
-        if isinstance(val, dict):
-            d[key].update(val)
-        else:
-            d[key] = val
+        return json.load(f)
+
+
+def _dump(path, d):
     with open(path, "w") as f:
         json.dump(d, f)
 
 
-def make(dst: str) -> str:
-    """The benchmark tree at dst (BENCHMARK.json and benchmark/), cut to
-    tiny sizes. Returns dst."""
-    shutil.copytree(os.path.join(REPO, "benchmark"),
+def _cut(path):
+    """Apply the file's own "cpu_test" block to it, in place."""
+    d = _load(path)
+    if "cpu_test" not in d:
+        raise ValueError(f"{path} has no \"cpu_test\" block: a cell uses "
+                         "it, and the CPU copy would run it at full size")
+    for key, val in d["cpu_test"].items():
+        if isinstance(val, dict):
+            d[key].update(val)
+        else:
+            d[key] = val
+    _dump(path, d)
+
+
+def make(dst: str, src: str = REPO) -> str:
+    """The benchmark tree of src (BENCHMARK.json and benchmark/) at dst,
+    every file that a cell uses cut by its own "cpu_test". Returns dst."""
+    shutil.copytree(os.path.join(src, "benchmark"),
                     os.path.join(dst, "benchmark"),
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    with open(os.path.join(REPO, "BENCHMARK.json")) as f:
-        bench = json.load(f)
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "later_cells.json")) as f:
-        later = json.load(f)
-    for key, rows in later.items():
+    bench = _load(os.path.join(src, "BENCHMARK.json"))
+    for key, rows in _load(os.path.join(src, "benchmark", "tests",
+                                        "later_cells.json")).items():
         bench[key] += rows
-    with open(os.path.join(dst, "BENCHMARK.json"), "w") as f:
-        json.dump(bench, f)
-    cfgs = os.path.join(dst, "benchmark", "configs")
-    _edit(os.path.join(cfgs, "bact_genomes.json"), tool={"s": 20.0},
-          inputs={"length_min": 20000, "length_max": 30000})
-    _edit(os.path.join(cfgs, "short_reads.json"), tool={"s": 20.0},
-          inputs={"genome_length": 20000, "reads": 400})
-    tr = os.path.join(dst, "benchmark", "traffic")
-    _edit(os.path.join(tr, "fof32.json"), genomes=3, files_per_call=3)
-    _edit(os.path.join(tr, "per_genome.json"), genomes=2)
-    _edit(os.path.join(tr, "allvsall100.json"), species=2, strains=3)
+    _dump(os.path.join(dst, "BENCHMARK.json"), bench)
+    files = {c["name"]: c["file"] for c in bench["configs"]}
+    used = set()
+    for w in bench["workloads"]:
+        used.add(files[w["config"]])
+        used.add(os.path.join("benchmark", "traffic", w["traffic"] + ".json"))
+    for rel in sorted(used):
+        _cut(os.path.join(dst, rel))
     return dst
 
 
 def workloads(root: str) -> list:
-    with open(os.path.join(root, "BENCHMARK.json")) as f:
-        return [w["name"] for w in json.load(f)["workloads"]]
+    return [w["name"] for w in _load(os.path.join(root, "BENCHMARK.json"))
+            ["workloads"]]
