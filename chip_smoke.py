@@ -1255,7 +1255,7 @@ def phase_compare_real(rng, device, workdir, timing=True,
     chunked, walls["chunked"] = compare("device", False, 1 << 20)
     same(chunked, ref, "chunked (1 MiB) against in RAM")
     # the in-RAM comparison's layers, each timed on the host's clock:
-    # decode, grouping (lexsort), then either engine's scoring
+    # decode, grouping (the native pass), then either engine's scoring
     t = time.perf_counter()
     mins, his, los, fids, nb_seen, _k, _m, _q = CD.decode_files(files)
     walls["decode"] = time.perf_counter() - t
@@ -1268,7 +1268,6 @@ def phase_compare_real(rng, device, workdir, timing=True,
     walls["enumerate"] = time.perf_counter() - t
     if enumerated != ref.score_A:
         raise AssertionError("the numpy engine's enumeration differs")
-    gids, fids = gids.astype(np.int32), fids.astype(np.int32)
     t = time.perf_counter()
     one = make_mesh([device])
     score = CD.score_matrix_device(gids, fids, n_groups, len(files), one,
@@ -1314,7 +1313,7 @@ def phase_compare_real(rng, device, workdir, timing=True,
         f"s at 4,096 groups a step, {walls['steps_default']:.3f} s at "
         f"the default [{gpu}]")
     log(f"  comparator layers (all-vs-all, {n} files, host clock): decode "
-        f"{walls['decode']:.6f} s; grouping (filter, lexsort, group ids) "
+        f"{walls['decode']:.6f} s; grouping (filter, native pass) "
         f"{walls['group']:.6f} s; scoring: numpy pair enumeration "
         f"{walls['enumerate']:.6f} s, score_matrix_device "
         f"{walls['steps_default']:.6f} s at the default step [{gpu}]")

@@ -13,17 +13,21 @@ merge, Comparator.cpp:39-74 + 97-287):
   buckets run count_intersection; within such buckets ALL co-occurring
   file pairs are scored, compute_scores Comparator.cpp:269-287).
 
-The sorted-array implementation groups identical pairs across files and
-accumulates pairwise counts, either on the host ("numpy") or as the
-presence matmul S = P^T P on a torch device ("device",
-parallel/compare_dist.py), on one device or over a mesh
-(parallel/mesh.py). Counterpart of supersampler_tpu/compare/merge.py.
+The array implementation decodes every file's pairs in file order,
+groups identical pairs across files (parallel/compare_dist.py
+group_pairs: one native pass that orders each file's slices of one
+minimizer by minimizer and sorts each minimizer's k-mers stably, which
+needs file ids that never descend) and accumulates pairwise counts, either
+on the host ("numpy") or as the presence matmul S = P^T P on a torch
+device ("device"), on one device or over a mesh (parallel/mesh.py).
+Counterpart of supersampler_tpu/compare/merge.py.
 
 Under a torch.profiler session each comparison records its spans on
 utils/profiling.py's tracer: the root ``compare.call`` (with
 ``device_trace("compare")`` around it), ``compare.open``,
 ``compare.decode`` (parallel/compare_dist.py; per file ``decode.read``
-and ``decode.pass``), ``compare.group`` (``group.sort``), ``compare.score``
+and ``decode.pass``), ``compare.group`` (``group.sort``, the native
+grouping pass; counter ``group.runs``), ``compare.score``
 (``score.h2d``, ``score.product``, ``score.fetch``), ``compare.tally``,
 and ``compare.csv`` for each CSV.
 """
@@ -62,8 +66,10 @@ def pair_scores_numpy(gid: np.ndarray, fids: np.ndarray,
     if not big.any():
         return {}
     sel = big[gid]
-    gid_sel = gid[sel]  # non-decreasing (sort order preserved)
-    fid_sel = fids[sel]  # ascending within each group (lexsort key)
+    gid_sel = gid[sel]  # non-decreasing (group_pairs' order kept)
+    # ascending within each group (group_pairs visits files in order);
+    # int64, so that the keys i * n + j cannot overflow
+    fid_sel = fids[sel].astype(np.int64)
     _, gstart, gcount = np.unique(gid_sel, return_index=True,
                                   return_counts=True)
     # vectorized pairwise accumulation: within a group every file id
@@ -264,9 +270,8 @@ class TorchComparator:
         if gid.size == 0:
             return
         if self.engine == "device":
-            score = score_matrix_device(
-                gid.astype(np.int32), fids.astype(np.int32),
-                int(gid[-1]) + 1, n, self.mesh)
+            score = score_matrix_device(gid, fids, int(gid[-1]) + 1, n,
+                                        self.mesh)
         else:
             with phase("compare.score"):
                 add = pair_scores_numpy(gid, fids, n)

@@ -2,7 +2,7 @@
 
 The reference comparator holds only the OPEN buckets of its N-way
 merge in memory (reference Comparator.cpp:39-74); the batch engine in
-compare/merge.py instead decodes every sketch fully and lexsorts the
+compare/merge.py instead decodes every sketch fully and groups the
 global pair array — fine at N=8, not at large collections. This module
 restores the bounded-memory profile for the vectorized engine:
 

@@ -1,10 +1,11 @@
-/* Native sketch decode for the port's comparator.
+/* Native sketch decode and pair grouping for the port's comparator.
  *
- * One pass over a sketch's inflated wire bytes turns every bucket into
- * its distinct canonical k-mers, in the order the comparator groups
- * them: buckets in file order, then (hi, lo) ascending.  It does what
- * the reference's inject_minimizer, rolling k-mer extraction and
- * per-bucket colour maps do (reference Comparator.cpp:78-264).
+ * Decode: one pass over a sketch's inflated wire bytes turns every
+ * bucket into its distinct canonical k-mers, in the order the
+ * comparator groups them: buckets in file order, then (hi, lo)
+ * ascending.  It does what the reference's inject_minimizer, rolling
+ * k-mer extraction and per-bucket colour maps do (reference
+ * Comparator.cpp:78-264).
  *
  * Wire format of a bucket (reference SubSampler.cpp:456-504): m ASCII
  * minimizer characters, a u32 little-endian blob size, the blob (a
@@ -15,11 +16,17 @@
  * Code mapping: nuc2int(c) = (c/2)%4 for any byte -> A=0, C=1, T=2,
  * G=3, so the complement of a code is code ^ 2 (reference
  * utils.cpp:13-16).
+ *
+ * Grouping (spsp_group_pairs, at the end): the decoded pairs of every
+ * file, concatenated in file order, numbered by distinct (minimizer,
+ * k-mer) without a global sort, from the order the decode gives.
  */
 
+#include <pthread.h>
 #include <stdint.h>
 #include <stdlib.h>
 #include <string.h>
+#include <unistd.h>
 
 typedef unsigned __int128 u128;
 
@@ -44,63 +51,69 @@ static int grow(buf_t *b, int64_t n, size_t elem)
     return 0;
 }
 
-static void insertion_sort(u128 *a, int64_t n)
-{
-    for (int64_t i = 1; i < n; i++) {
-        u128 v = a[i];
-        int64_t j = i;
-        while (j > 0 && a[j - 1] > v) {
-            a[j] = a[j - 1];
-            j--;
-        }
-        a[j] = v;
+/* Sort the n elements of a, whose keys KEY(x) are equal above their
+ * key_bits low bits, ascending and stably, and return where they are,
+ * a or tmp (room for n).  A bucket holds tens of k-mers, so one
+ * counting pass on the keys' top bits into about n bins comes first (a
+ * most-significant-digit radix sort); that leaves the few elements of
+ * each bin to an insertion sort over the whole array, which then
+ * mispredicts little and alone makes the result sorted.  A bin of more
+ * than 16 elements is sorted the same way on the bits below first, and
+ * a pass that puts every element in one bin moves on to the next bits.
+ * Every step keeps equal keys in their order.  SORT_BY_KEY(name, T,
+ * KEY) defines name for elements of type T. */
+#define SORT_BY_KEY(NAME, T, KEY)                                          \
+    static void NAME##_insertion(T *a, int64_t n)                          \
+    {                                                                      \
+        for (int64_t i = 1; i < n; i++) {                                  \
+            T v = a[i];                                                    \
+            int64_t j = i;                                                 \
+            while (j > 0 && KEY(a[j - 1]) > KEY(v)) {                      \
+                a[j] = a[j - 1];                                           \
+                j--;                                                       \
+            }                                                              \
+            a[j] = v;                                                      \
+        }                                                                  \
+    }                                                                      \
+                                                                           \
+    static T *NAME(T *a, int64_t n, int key_bits, T *tmp)                  \
+    {                                                                      \
+        uint32_t end[4097];                                                \
+        for (;;) {                                                         \
+            if (n <= 16 || key_bits == 0) {                                \
+                NAME##_insertion(a, n);                                    \
+                return a;                                                  \
+            }                                                              \
+            int bits = 4;                                                  \
+            while ((1 << bits) < n && bits < 12)                           \
+                bits++;                                                    \
+            if (bits > key_bits)                                           \
+                bits = key_bits;                                           \
+            const int sh = key_bits - bits;                                \
+            const uint32_t nb = 1u << bits, d = nb - 1;                    \
+            key_bits = sh;                                                 \
+            memset(end, 0, (nb + 1) * sizeof(uint32_t));                   \
+            for (int64_t i = 0; i < n; i++)                                \
+                end[((uint32_t)(KEY(a[i]) >> sh) & d) + 1]++;              \
+            if (end[((uint32_t)(KEY(a[0]) >> sh) & d) + 1] == n)           \
+                continue;                                                  \
+            for (uint32_t b = 0; b < nb; b++)                              \
+                end[b + 1] += end[b];                                      \
+            for (int64_t i = 0; i < n; i++)                                \
+                tmp[end[(uint32_t)(KEY(a[i]) >> sh) & d]++] = a[i];        \
+            /* end[b] is now the end of bin b; a is free to be scratch */  \
+            for (uint32_t b = 0, s = 0; b < nb; s = end[b++]) {            \
+                const int64_t len = end[b] - s;                            \
+                if (len > 16 && NAME(tmp + s, len, sh, a + s) != tmp + s)  \
+                    memcpy(tmp + s, a + s, len * sizeof(T));               \
+            }                                                              \
+            NAME##_insertion(tmp, n);                                      \
+            return tmp;                                                    \
+        }                                                                  \
     }
-}
 
-/* Sort the n keys of a, equal above their key_bits low bits, ascending
- * and return where they are, a or tmp (room for n).  A bucket holds
- * tens of k-mers, so one counting pass on the keys' top bits into about
- * n bins comes first (a most-significant-digit radix sort); that
- * leaves the few keys of each bin to an insertion sort over the whole
- * array, which then mispredicts little and alone makes the result
- * sorted.  A bin of more than 16 keys is sorted the same way on the
- * bits below first, and a pass that puts every key in one bin moves on
- * to the next bits. */
-static u128 *sort_keys(u128 *a, int64_t n, int key_bits, u128 *tmp)
-{
-    uint32_t end[4097];
-    for (;;) {
-        if (n <= 16 || key_bits == 0) {
-            insertion_sort(a, n);
-            return a;
-        }
-        int bits = 4;
-        while ((1 << bits) < n && bits < 12)
-            bits++;
-        if (bits > key_bits)
-            bits = key_bits;
-        const int sh = key_bits - bits;
-        const uint32_t nb = 1u << bits, d = nb - 1;
-        key_bits = sh;
-        memset(end, 0, (nb + 1) * sizeof(uint32_t));
-        for (int64_t i = 0; i < n; i++)
-            end[((uint32_t)(a[i] >> sh) & d) + 1]++;
-        if (end[((uint32_t)(a[0] >> sh) & d) + 1] == n)
-            continue;
-        for (uint32_t b = 0; b < nb; b++)
-            end[b + 1] += end[b];
-        for (int64_t i = 0; i < n; i++)
-            tmp[end[(uint32_t)(a[i] >> sh) & d]++] = a[i];
-        /* end[b] is now the end of bin b; a is free to be scratch */
-        for (uint32_t b = 0, s = 0; b < nb; s = end[b++]) {
-            const int64_t len = end[b] - s;
-            if (len > 16 && sort_keys(tmp + s, len, sh, a + s) != tmp + s)
-                memcpy(tmp + s, a + s, len * sizeof(u128));
-        }
-        insertion_sort(tmp, n);
-        return tmp;
-    }
-}
+#define SELF(x) (x)
+SORT_BY_KEY(sort_keys, u128, SELF)
 
 /* Append the canonical k-mer of every window of seq[0, len) (codes
  * 0-3, len >= k) to keys: forward and reverse complement rolled
@@ -272,5 +285,301 @@ done:
     info[0] = windows;
     info[1] = pairs;
     info[2] = nb;
+    return rc;
+}
+
+/* Grouping of the decoded pairs.
+ *
+ * spsp_group_pairs numbers the distinct (minimizer, k-mer) pairs of the
+ * files and lists each pair's group and file in (minimizer, hi, lo,
+ * file) order: group ids non-decreasing, file ids ascending within a
+ * group.  It uses the order the decode gives instead of sorting every
+ * pair.
+ *
+ * Precondition: file ids never descend over the array, so each file's
+ * pairs form one stretch (every caller concatenates files in order).
+ * Within a file the decode gives the buckets in the sketch's order,
+ * which the writer sorts by minimizer, so each minimizer's pairs are
+ * one slice of each file.  One walk cuts the array into slices of one
+ * file and one minimizer and numbers the distinct minimizers through
+ * an open-addressing hash; the few distinct minimizers are sorted, and
+ * a counting pass lists each minimizer's slices in array order, which
+ * is file order.  Then each minimizer's items, a few hundred, are
+ * sorted stably by k-mer (the radix pass and insertion sort of the
+ * decode) with their file ids, so the items of one k-mer keep file
+ * order, and a pass numbers the groups.  Minimizers are independent
+ * there: runs of them of about equal items go to up to 8 threads, one
+ * per core, each numbering its groups from 0 until one pass adds the
+ * groups before it.  Buckets out of order only cut more slices.  The
+ * walk also counts the runs, stretches of one file with non-decreasing
+ * minimizers: one per sketch whose buckets are in order. */
+
+typedef struct {
+    u128 key;
+    int64_t fid;
+} item_t;
+
+#define ITEM_KEY(x) ((x).key)
+SORT_BY_KEY(sort_items, item_t, ITEM_KEY)
+
+/* An open-addressing table of minimizers and their ids + 1 (id 0:
+ * empty), mask + 1 entries, a power of two, at most half of them
+ * used. */
+typedef struct {
+    uint64_t key;
+    uint64_t id;
+} entry_t;
+
+typedef struct {
+    entry_t *e;
+    uint64_t mask;
+} table_t;
+
+/* The entry that holds key, or the empty one where it would go. */
+static inline uint64_t probe(const table_t *t, uint64_t key)
+{
+    uint64_t i = key * 0x9E3779B97F4A7C15ull;
+    i = (i ^ i >> 32) & t->mask;
+    while (t->e[i].id && t->e[i].key != key)
+        i = (i + 1) & t->mask;
+    return i;
+}
+
+/* Double t's entries (16 at first) and insert its entries again. */
+static int table_grow(table_t *t)
+{
+    const table_t old = *t;
+    const uint64_t size = old.e ? 2 * (old.mask + 1) : 16;
+    t->e = calloc(size, sizeof(entry_t));
+    t->mask = size - 1;
+    if (!t->e) {
+        free(old.e);
+        return -1;
+    }
+    for (uint64_t i = 0; old.e && i <= old.mask; i++)
+        if (old.e[i].id)
+            t->e[probe(t, old.e[i].key)] = old.e[i];
+    free(old.e);
+    return 0;
+}
+
+/* A run of whole minimizers: the slices od[p0, p1), whose items go to
+ * gids and fids_out from base on; groups counts its k-mers, numbered
+ * from 0; rc -2 when out of memory. */
+typedef struct {
+    const uint64_t *hi, *lo;
+    const int64_t *fids, *st;
+    const uint32_t *od, *sm;
+    int32_t *gids, *fids_out;
+    int key_bits;
+    int64_t p0, p1, base, groups, rc;
+} part_t;
+
+static void *group_part(void *arg)
+{
+    part_t *w = arg;
+    const int64_t *st = w->st;
+    const uint32_t *od = w->od, *sm = w->sm;
+    buf_t items = {0}, items_tmp = {0};
+    int64_t g = -1, base = w->base;
+    w->rc = 0;
+    for (int64_t p = w->p0, e; p < w->p1; p = e) {
+        /* the slices od[p, e) of one minimizer, c items */
+        int64_t c = 0;
+        for (e = p; e < w->p1 && sm[od[e]] == sm[od[p]]; e++)
+            c += st[od[e] + 1] - st[od[e]];
+        if (grow(&items, c, sizeof(item_t))
+            || grow(&items_tmp, c, sizeof(item_t))) {
+            w->rc = -2;
+            break;
+        }
+
+        /* the items in file order, sorted stably by k-mer */
+        item_t *it = items.p;
+        for (int64_t q = p, j = 0; q < e; q++) {
+            const int64_t s0 = st[od[q]], s1 = st[od[q] + 1];
+            const int64_t f = w->fids[s0];
+            for (int64_t i = s0; i < s1; i++, j++) {
+                it[j].key = (u128)w->hi[i] << 64 | w->lo[i];
+                it[j].fid = f;
+            }
+        }
+        const item_t *sorted = sort_items(it, c, w->key_bits, items_tmp.p);
+
+        /* one group per distinct k-mer */
+        for (int64_t j = 0; j < c; j++) {
+            g += j == 0 || sorted[j].key != sorted[j - 1].key;
+            w->gids[base + j] = (int32_t)g;
+            w->fids_out[base + j] = (int32_t)sorted[j].fid;
+        }
+        base += c;
+    }
+    free(items.p);
+    free(items_tmp.p);
+    w->groups = g + 1;
+    return NULL;
+}
+
+/* Group the n pairs (mins, hi, lo, fids) as above: gids and fids_out
+ * (room for n each) in (minimizer, hi, lo, file) order.  info[0] the
+ * groups, info[1] the runs.  Returns 0, -1 when file ids descend
+ * (info[2] the first position whose id is below its predecessor's),
+ * -2 when out of memory.  n must be below 2^31 and the file ids within
+ * int32. */
+int64_t spsp_group_pairs(const uint64_t *mins, const uint64_t *hi,
+                         const uint64_t *lo, const int64_t *fids, int64_t n,
+                         int32_t *gids, int32_t *fids_out, int64_t *info)
+{
+    enum { MAX_PARTS = 8, PART_ITEMS = 16384 };
+    buf_t sl_start = {0}, sl_min = {0}, ord = {0}, mv = {0}, mcount = {0},
+          keys = {0}, tmp = {0};
+    table_t mt = {0};
+    part_t parts[MAX_PARTS];
+    pthread_t threads[MAX_PARTS];
+    int started[MAX_PARTS] = {0};
+    int64_t rc = 0, runs = 0, n_min = 0, groups = 0, descents = 0;
+    uint64_t min_or = 0, hi_or = 0, lo_or = 0;
+    info[2] = -1;
+    if (n == 0)
+        goto done;
+
+    /* slices of one file and one minimizer (their starts, branch-free,
+     * then n), file ids that descend, and the bits the keys use */
+    if (grow(&sl_start, n + 1, sizeof(int64_t))
+        || grow(&sl_min, n, sizeof(uint32_t)) || table_grow(&mt))
+        goto oom;
+    int64_t *st = sl_start.p, n_sl = 1;
+    uint32_t *sm = sl_min.p;
+    st[0] = 0;
+    hi_or = hi[0];
+    lo_or = lo[0];
+    for (int64_t i = 1; i < n; i++) {
+        st[n_sl] = i;
+        n_sl += (mins[i] != mins[i - 1]) | (fids[i] != fids[i - 1]);
+        descents += fids[i] < fids[i - 1];
+        hi_or |= hi[i];
+        lo_or |= lo[i];
+    }
+    st[n_sl] = n;
+    if (descents) {
+        int64_t i = 1;
+        while (fids[i] >= fids[i - 1])
+            i++;
+        info[2] = i;
+        rc = -1;
+        goto done;
+    }
+
+    /* each slice's minimizer id, each minimizer's slices and items, and
+     * the runs */
+    for (int64_t s = 0; s < n_sl; s++) {
+        const int64_t i = st[s];
+        runs += i == 0 || fids[i] != fids[i - 1] || mins[i] < mins[i - 1];
+        uint64_t t = probe(&mt, mins[i]);
+        if (!mt.e[t].id) {
+            if (grow(&mv, n_min + 1, sizeof(uint64_t))
+                || grow(&mcount, 2 * (n_min + 1), sizeof(int64_t)))
+                goto oom;
+            ((uint64_t *)mv.p)[n_min] = mins[i];
+            ((int64_t *)mcount.p)[2 * n_min] = 0;
+            ((int64_t *)mcount.p)[2 * n_min + 1] = 0;
+            min_or |= mins[i];
+            mt.e[t].key = mins[i];
+            mt.e[t].id = (uint64_t)++n_min;
+            if (2 * (uint64_t)n_min > mt.mask) {
+                if (table_grow(&mt))
+                    goto oom;
+                t = probe(&mt, mins[i]);
+            }
+        }
+        sm[s] = (uint32_t)(mt.e[t].id - 1);
+        ((int64_t *)mcount.p)[2 * sm[s]]++;
+        ((int64_t *)mcount.p)[2 * sm[s] + 1] += st[s + 1] - i;
+    }
+
+    /* the minimizers ascending, each id packed below its value; the
+     * parts, cut between minimizers at about equal items; each
+     * minimizer's slices in array order */
+    if (grow(&keys, n_min, sizeof(u128)) || grow(&tmp, n_min, sizeof(u128))
+        || grow(&ord, n_sl, sizeof(uint32_t)))
+        goto oom;
+    u128 *pk = keys.p;
+    for (int64_t id = 0; id < n_min; id++)
+        pk[id] = (u128)((uint64_t *)mv.p)[id] << 32 | (uint64_t)id;
+    const u128 *mins_sorted = sort_keys(
+        pk, n_min, 32 + (min_or ? 64 - __builtin_clzll(min_or) : 0),
+        tmp.p);
+    const long cores = sysconf(_SC_NPROCESSORS_ONLN);
+    int64_t n_parts = n / PART_ITEMS;
+    n_parts = n_parts < MAX_PARTS ? n_parts : MAX_PARTS;
+    n_parts = n_parts < cores ? n_parts : cores;
+    n_parts = n_parts > 1 ? n_parts : 1;
+    int64_t *mc = mcount.p, k = 0;
+    parts[0].p0 = parts[0].base = 0;
+    for (int64_t q = 0, pos = 0, at = 0; q < n_min; q++) {
+        const uint32_t id = (uint32_t)mins_sorted[q];
+        const int64_t len = mc[2 * id];
+        at += mc[2 * id + 1];
+        mc[2 * id] = pos;
+        pos += len;
+        if (k + 1 < n_parts && at * n_parts >= (k + 1) * n && pos < n_sl) {
+            parts[k++].p1 = pos;
+            parts[k].p0 = pos;
+            parts[k].base = at;
+        }
+    }
+    parts[k].p1 = n_sl;
+    n_parts = k + 1;
+    uint32_t *od = ord.p;
+    for (int64_t s = 0; s < n_sl; s++)
+        od[mc[2 * sm[s]]++] = (uint32_t)s;
+
+    /* the parts, on threads where they start; then the groups before
+     * each part added to its ids */
+    const int key_bits = hi_or ? 128 - __builtin_clzll(hi_or)
+                         : lo_or ? 64 - __builtin_clzll(lo_or) : 0;
+    for (k = 0; k < n_parts; k++) {
+        part_t *w = &parts[k];
+        w->hi = hi;
+        w->lo = lo;
+        w->fids = fids;
+        w->st = st;
+        w->od = od;
+        w->sm = sm;
+        w->gids = gids;
+        w->fids_out = fids_out;
+        w->key_bits = key_bits;
+        if (k > 0)
+            started[k] = !pthread_create(&threads[k], NULL, group_part, w);
+    }
+    group_part(&parts[0]);
+    for (k = 1; k < n_parts; k++) {
+        if (started[k])
+            pthread_join(threads[k], NULL);
+        else
+            group_part(&parts[k]);
+    }
+    for (k = 0; k < n_parts; k++) {
+        if (parts[k].rc)
+            goto oom;
+        const int64_t end = k + 1 < n_parts ? parts[k + 1].base : n;
+        for (int64_t j = parts[k].base; groups && j < end; j++)
+            gids[j] += (int32_t)groups;
+        groups += parts[k].groups;
+    }
+    goto done;
+oom:
+    rc = -2;
+done:
+    free(sl_start.p);
+    free(sl_min.p);
+    free(ord.p);
+    free(mv.p);
+    free(mcount.p);
+    free(keys.p);
+    free(tmp.p);
+    free(mt.e);
+    info[0] = groups;
+    info[1] = runs;
     return rc;
 }

@@ -3,16 +3,17 @@
 The port's copy of what it uses from supersampler_tpu/native.py: the
 long-double FHS threshold, the one-pass clean + 2-bit pack of a record
 or of a chunk's records, and the C finisher (k-mer store,
-reconstruction, serialization); and the port's own sketch decode for
-the comparator. The threshold and the finisher come from the repo's
-shared ``csrc/spsp_native.c`` and ``csrc/spsp_finish.c``; the clean +
-pack from the port's own ``supersampler_tpu_torch/csrc/spsp_io.c``,
-whose fast path strips every non-ACGT byte as the reference does (the
-shared copy keeps a few, see that file); the decode from
-``supersampler_tpu_torch/csrc/spsp_decode.c``. They compile with the system
-C compiler into the port's own ``build/libspsp_torch_native.so`` at
-first use, and again when a source is newer than the library. A failed
-build raises: there are no Python fallbacks.
+reconstruction, serialization); and the port's own sketch decode and
+pair grouping for the comparator. The threshold and the finisher come
+from the repo's shared ``csrc/spsp_native.c`` and ``csrc/spsp_finish.c``;
+the clean + pack from the port's own
+``supersampler_tpu_torch/csrc/spsp_io.c``, whose fast path strips every
+non-ACGT byte as the reference does (the shared copy keeps a few, see
+that file); the decode and the grouping from
+``supersampler_tpu_torch/csrc/spsp_decode.c``. They compile with the
+system C compiler into the port's own ``build/libspsp_torch_native.so``
+at first use, and again when a source is newer than the library. A
+failed build raises: there are no Python fallbacks.
 """
 
 from __future__ import annotations
@@ -54,8 +55,8 @@ def _build() -> None:
     tmp = f"{_LIB}.{os.getpid()}.tmp"
     errors = []
     for cc in ("cc", "gcc", "clang"):
-        cmd = [cc, "-O3", "-march=native", "-shared", "-fPIC", "-o", tmp,
-               *_SOURCES, "-lm"]
+        cmd = [cc, "-O3", "-march=native", "-shared", "-fPIC", "-pthread",
+               "-o", tmp, *_SOURCES, "-lm"]
         try:
             r = subprocess.run(cmd, capture_output=True, text=True)
         except FileNotFoundError:
@@ -97,6 +98,8 @@ def get_lib() -> ctypes.CDLL:
             [_P] + [_P] * 2 + [_I64] + [_P] * 6)
         lib.spsp_decode_pairs.restype = _I64
         lib.spsp_decode_pairs.argtypes = [_P, _I64, _I64, _I, _I] + [_P] * 5
+        lib.spsp_group_pairs.restype = _I64
+        lib.spsp_group_pairs.argtypes = [_P] * 4 + [_I64] + [_P] * 3
         _lib = lib
         return _lib
 
@@ -245,3 +248,44 @@ def decode_pairs_native(data: bytes, pos0: int, k: int, m: int):
         raise MemoryError("the sketch decode ran out of memory")
     n = int(info[1])
     return mins[:n], hi[:n], lo[:n], bmins, windows
+
+
+def group_pairs_native(mins, his, los, fids):
+    """Number the distinct (minimizer, k-mer) pairs of decoded files in
+    one C pass (supersampler_tpu_torch/csrc/spsp_decode.c
+    spsp_group_pairs).
+
+    fids must never descend, so that each file's pairs are one stretch.
+    The pairs are cut into slices of one file and one minimizer, the
+    slices ordered by minimizer (file order kept) and each minimizer's
+    k-mers sorted stably, on up to 8 threads; runs counts the stretches
+    of one file with non-decreasing minimizers (one per sketch whose
+    buckets are in order). Returns (group ids int32[], file ids int32[],
+    runs), both arrays in (minimizer, hi, lo, file) order: group ids
+    non-decreasing, file ids ascending within a group. Raises ValueError
+    naming the first position whose file id is below its
+    predecessor's."""
+    c = np.ascontiguousarray
+    mins, his, los = (c(a, np.uint64) for a in (mins, his, los))
+    fids = c(fids, np.int64)
+    n = mins.size
+    if not his.size == los.size == fids.size == n:
+        raise ValueError("group_pairs takes arrays of one length")
+    # the pass checks that fids never descend, so these bound them all
+    if n >= 1 << 31 or (n and (fids[0] < 0 or fids[-1] >= 1 << 31)):
+        raise ValueError("group_pairs takes fewer than 2^31 pairs and "
+                         "file ids in [0, 2^31)")
+    gids = np.empty(n, np.int32)
+    fids_out = np.empty(n, np.int32)
+    info = np.zeros(3, np.int64)
+    rc = get_lib().spsp_group_pairs(
+        mins.ctypes.data, his.ctypes.data, los.ctypes.data,
+        fids.ctypes.data, n, gids.ctypes.data, fids_out.ctypes.data,
+        info.ctypes.data)
+    if rc == -1:
+        raise ValueError(f"file ids descend at position {int(info[2])}: "
+                         "group_pairs takes each file's pairs as one "
+                         "stretch, files in ascending order")
+    if rc != 0:
+        raise MemoryError("the pair grouping ran out of memory")
+    return gids, fids_out, int(info[1])

@@ -16,10 +16,17 @@ an XLA ``jnp.dot`` there, is ``torch._int_mm`` here (cuBLASLt's int8 x
 int8 -> int32 path on CUDA), exact in integers; the final sum stands in
 for the JAX mesh's all-reduce.
 
+Grouping (group_pairs) is one native pass over the decoded pairs: it
+cuts them into slices of one file and one minimizer, orders the slices
+by minimizer (file order kept) and sorts each minimizer's few hundred
+k-mers stably, minimizers shared out over up to 8 threads; it needs the
+files' pairs in file order, which the decode gives.
+
 Counters (utils/profiling.py, in a profiler session):
 ``decode.windows`` (k-mer windows before the dedup) and
 ``decode.pairs`` (after it), counted in compare/reader.py's native
-pass, and ``score.h2d_bytes``.
+pass, ``group.runs`` (the runs the grouping found: one per sketch
+whose buckets are in order) and ``score.h2d_bytes``.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 
 from supersampler_tpu_torch.compare.reader import decode_sketch_pairs
+from supersampler_tpu_torch.native import group_pairs_native
 from supersampler_tpu_torch.parallel.mesh import Mesh
 from supersampler_tpu_torch.utils.profiling import count, phase
 
@@ -73,9 +81,16 @@ def group_pairs(mins, his, los, fids,
     """Group decoded (minimizer, k-mer, file) pairs by (minimizer, k-mer).
 
     Drops the pairs of buckets no query file holds when query_minimizers
-    is given (query mode), sorts by (minimizer, k-mer, file) and numbers
-    the groups. Returns (group ids int64, file ids), both in that order:
-    group ids are non-decreasing and file ids ascend within a group."""
+    is given (query mode), then numbers the groups in one native pass
+    (native.py ``group_pairs_native``) that uses the decode's order in
+    place of a sort: file ids must never descend, so each file's pairs
+    are one stretch, as decode_files and every chunk of
+    compare_sketches_chunked give them (the query filter keeps order);
+    a stretch of one file with non-decreasing minimizers is a run, one
+    per sketch whose buckets are in order. Raises ValueError naming the
+    position where file ids descend. Returns (group ids int32, file ids
+    int32) in (minimizer, k-mer, file) order: group ids are
+    non-decreasing and file ids ascend within a group."""
     with phase("compare.group"):
         if query_minimizers is not None:
             qm = np.array(sorted(query_minimizers), dtype=np.uint64)
@@ -83,14 +98,8 @@ def group_pairs(mins, his, los, fids,
             mins, his, los, fids = (mins[keep], his[keep], los[keep],
                                     fids[keep])
         with phase("group.sort"):
-            order = np.lexsort((fids, los, his, mins))
-            mins, his, los, fids = (mins[order], his[order], los[order],
-                                    fids[order])
-        new_group = np.ones(mins.size, dtype=bool)
-        if mins.size:
-            new_group[1:] = ((mins[1:] != mins[:-1]) | (his[1:] != his[:-1])
-                             | (los[1:] != los[:-1]))
-        gids = np.cumsum(new_group) - 1
+            gids, fids, runs = group_pairs_native(mins, his, los, fids)
+        count("group.runs", runs)
     return gids, fids
 
 
@@ -105,8 +114,7 @@ def build_presence_chunks(files: List[str], query_size: int = None):
                                                              query_size)
     gids, fids = group_pairs(mins, his, los, fids, qmins)
     n_groups = int(gids[-1]) + 1 if gids.size else 0
-    return (gids.astype(np.int32), fids.astype(np.int32), n_groups,
-            nb_seen, k, m)
+    return gids, fids, n_groups, nb_seen, k, m
 
 
 def padded_files(n_files: int) -> int:

@@ -128,13 +128,21 @@ def compare_all_vs_all_distributed(files: Sequence[str], mesh=None,
                                np.full(mins.size, f, np.uint64)]))
     local = (np.concatenate(parts, axis=1) if parts
              else np.zeros((4, 0), np.uint64))
-    allp = _all_gather_pairs(local, cnt)
-    fids = allp[3].astype(np.int64)
-    comp.nb_files = len(files)
-    comp.query_size = query_size
-    comp.nb_kmer_seen_infile = np.bincount(
-        fids, minlength=len(files)).tolist()
-    qmins = (set(np.unique(allp[0][fids < query_size]).tolist())
-             if query_size < len(files) else None)
-    comp._score_pairs(allp[0], allp[1], allp[2], fids, query_size, qmins)
+    score_gathered_pairs(comp, _all_gather_pairs(local, cnt), query_size)
     return comp
+
+
+def score_gathered_pairs(comp: TorchComparator, allp: np.ndarray,
+                         query_size: int) -> None:
+    """Score all-gathered (4, n) pair columns (minimizer, hi, lo, file
+    id) on comp, whose files_names are the compared files. The shards
+    are strided, so the files' pairs are put in file order first, as
+    group_pairs takes them."""
+    allp = allp[:, np.argsort(allp[3], kind="stable")]
+    fids = allp[3].astype(np.int64)
+    n = comp.nb_files = len(comp.files_names)
+    comp.query_size = query_size
+    comp.nb_kmer_seen_infile = np.bincount(fids, minlength=n).tolist()
+    qmins = (set(np.unique(allp[0][fids < query_size]).tolist())
+             if query_size < n else None)
+    comp._score_pairs(allp[0], allp[1], allp[2], fids, query_size, qmins)

@@ -388,6 +388,125 @@ def test_group_pairs_is_the_comparators_grouping():
     assert nb_seen == c.nb_kmer_seen_infile
 
 
+def _lexsort_grouping(mins, his, los, fids, query_minimizers=None):
+    """The grouping that group_pairs' native pass replaced, kept as its
+    oracle: the query filter, a lexsort by (minimizer, hi, lo, file),
+    group ids from the key boundaries, both as int32."""
+    if query_minimizers is not None:
+        keep = np.isin(mins, np.array(sorted(query_minimizers), np.uint64))
+        mins, his, los, fids = mins[keep], his[keep], los[keep], fids[keep]
+    order = np.lexsort((fids, los, his, mins))
+    mins, his, los, fids = mins[order], his[order], los[order], fids[order]
+    new_group = np.ones(mins.size, dtype=bool)
+    if mins.size:
+        new_group[1:] = ((mins[1:] != mins[:-1]) | (his[1:] != his[:-1])
+                         | (los[1:] != los[:-1]))
+    gids = np.cumsum(new_group) - 1
+    return gids.astype(np.int32), fids.astype(np.int32)
+
+
+def _shared_pairs(seed, n_files, n_min=300, wide=False, reverse=()):
+    """Decoded pairs of n_files made-up sketches in the decode's order
+    (buckets by minimizer, distinct keys ascending), files of four
+    species drawing most keys from their species' pool of small numbers,
+    a few large ones of their own. Wide keys have a non-zero hi (k > 32),
+    with equal lo under unequal hi. The files in ``reverse`` list their
+    buckets in descending minimizer order."""
+    rng = np.random.default_rng(seed)
+    minv = np.sort(rng.choice(1 << 22, n_min, replace=False)).astype(
+        np.uint64)
+    pool_lo = rng.integers(0, 64, (n_min, 4, 3)).astype(np.uint64)
+    pool_hi = (rng.integers(0, 3, (n_min, 4, 3)) if wide
+               else np.zeros((n_min, 4, 3), np.int64)).astype(np.uint64)
+    cols = []
+    for f in range(n_files):
+        mi, ki = np.nonzero(rng.random((n_min, 3)) < 0.7)
+        own = rng.integers(0, n_min, 8)
+        mi = np.concatenate([mi, own])
+        lo = np.concatenate([pool_lo[mi[:-8], f % 4, ki],
+                             rng.integers(0, 1 << 40, 8).astype(np.uint64)])
+        hi = np.concatenate([pool_hi[mi[:-8], f % 4, ki],
+                             pool_hi[own, 0, 0]])
+        m, h, l = np.unique(np.stack([minv[mi], hi, lo], 1), axis=0).T
+        if f in reverse:
+            # buckets in descending order, each bucket's keys ascending
+            order = np.lexsort((l, h, -np.searchsorted(minv, m)))
+            m, h, l = m[order], h[order], l[order]
+        cols.append((m, h, l, np.full(m.size, f, np.int64)))
+    return tuple(np.concatenate([c[i] for c in cols]) for i in range(4))
+
+
+def _chunk_pairs():
+    """The pairs of one chunk of compare_sketches_chunked, built as it
+    builds them."""
+    rounds = list(TST.chunk_rounds([TST.BucketStream(p) for p in _FILES],
+                                   1 << 10))
+    assert len(rounds) > 4
+    _idx, chunk, _offsets = rounds[len(rounds) // 2]
+    k, m = TST.BucketStream(_FILES[0]).k, TST.BucketStream(_FILES[0]).m
+    cols = []
+    for f, buckets in enumerate(chunk):
+        if buckets:
+            mins, his, los = TST.decode_bucket_pairs(buckets, k, m)
+            cols.append((mins, his, los, np.full(mins.size, f, np.int64)))
+    return tuple(np.concatenate([c[i] for c in cols]) for i in range(4))
+
+
+def _grouping_case(case):
+    """(mins, his, los, fids, query minimizers) of one case."""
+    empty = np.zeros(0, np.uint64)
+    if case == "goldens":
+        return TCD.decode_files([os.path.join(_GOLD, n)
+                                 for n in _SKETCHES])[:4] + (None,)
+    if case == "query":
+        out = TCD.decode_files(_FILES, 2)
+        return out[:4] + (out[7],)
+    if case == "chunk":
+        return _chunk_pairs() + (None,)
+    if case == "empty":
+        return (empty, empty, empty, np.zeros(0, np.int64), None)
+    kw = {"shared": dict(n_files=60), "one_file": dict(n_files=1),
+          "descending": dict(n_files=12, reverse=(0, 5, 11)),
+          "wide_k": dict(n_files=20, wide=True)}[case]
+    return _shared_pairs(len(case), **kw) + (None,)
+
+
+@pytest.mark.parametrize("case", ["goldens", "shared", "empty", "one_file",
+                                  "descending", "wide_k", "query", "chunk"])
+def test_group_pairs_equals_the_lexsort(case):
+    """group_pairs' native pass against the lexsort it replaced, element
+    for element, values and dtypes; and one run a file, more where a
+    file's buckets descend."""
+    from supersampler_tpu_torch.native import group_pairs_native
+
+    mins, his, los, fids, qmins = _grouping_case(case)
+    want = _lexsort_grouping(mins, his, los, fids, qmins)
+    got = TCD.group_pairs(mins, his, los, fids, qmins)
+    for a, b in zip(got, want, strict=True):
+        assert a.dtype == b.dtype == np.int32 and np.array_equal(a, b)
+    if qmins is not None:
+        keep = np.isin(mins, np.array(sorted(qmins), np.uint64))
+        assert 0 < keep.sum() < keep.size
+        mins, his, los, fids = mins[keep], his[keep], los[keep], fids[keep]
+    runs = group_pairs_native(mins, his, los, fids)[2]
+    files = np.unique(fids).size
+    assert runs > files if case == "descending" else runs == files
+    if case == "wide_k":
+        assert his.any()
+    if case not in ("empty", "one_file"):
+        # groups shared by files, and files with more than one pair
+        assert files > 1 and np.bincount(got[0]).max() > 1
+
+
+@pytest.mark.parametrize("fids,at", [([0, 1, 0, 1], 2), ([3, 3, 1, 1], 2),
+                                     ([0, 2, 2, 1], 3)])
+def test_group_pairs_rejects_file_ids_out_of_order(fids, at):
+    mins = np.array([5, 9, 2, 7], np.uint64)
+    zero = np.zeros(4, np.uint64)
+    with pytest.raises(ValueError, match=f"file ids descend at position {at}"):
+        TCD.group_pairs(mins, zero, zero, np.array(fids))
+
+
 # chunked / streaming comparison (mirrors tests/test_chunked_compare.py)
 
 

@@ -159,7 +159,8 @@ def test_real_two_process_distributed_compare(tmp_path, query_size,
 def test_simulated_two_process_shard_gather_score():
     """The multi-process flow by hand: two processes decode disjoint
     strided file shards, the pair arrays concatenate (the all-gather),
-    one comparator scores: equal to one process's numpy engine."""
+    one comparator scores them (score_gathered_pairs, which puts them in
+    file order): equal to one process's numpy engine."""
     files = _golden_files()
     parts = []
     k = m = 0
@@ -172,13 +173,8 @@ def test_simulated_two_process_shard_gather_score():
 
     comp = TorchComparator(engine="device", device="cpu")
     comp.files_names = list(files)
-    comp.nb_files = len(files)
-    comp.query_size = len(files)
     comp.k, comp.m = k, m
-    fids = allp[3].astype(np.int64)
-    comp.nb_kmer_seen_infile = np.bincount(
-        fids, minlength=len(files)).tolist()
-    comp._score_pairs(allp[0], allp[1], allp[2], fids, len(files))
+    dist.score_gathered_pairs(comp, allp, len(files))
 
     ref = _numpy_ref(files)
     assert comp.score_A == ref.score_A

@@ -212,9 +212,34 @@ def test_comparison_counters(family):
     # all against all: every decoded pair is grouped and copied, as an
     # int32 group id and an int32 file id
     assert n["score.h2d_bytes"] == 8 * n["decode.pairs"]
-    assert set(n) == {"decode.windows", "decode.pairs", "score.h2d_bytes"}
+    assert set(n) == {"decode.windows", "decode.pairs", "group.runs",
+                      "score.h2d_bytes"}
     root, = [s for s in timers.spans() if s.name == "compare.call"]
     assert all(x.call == root.span for x in timers.counters())
+
+
+@pytest.mark.parametrize("chunk_bytes", [None, 1024])
+def test_grouping_counts_one_run_per_sketch(family, chunk_bytes):
+    """The grouping finds one run per sketch (each sketch's buckets are
+    in order): the number of sketches in a comparison, and in the
+    chunked engine the files with buckets in each chunk; ``group.sort``,
+    the native pass, stays a child of ``compare.group``."""
+    with _session():
+        _compare(family, chunk_bytes=chunk_bytes)
+    runs = [x for x in timers.counters() if x.name == "group.runs"]
+    if chunk_bytes is None:
+        assert [x.n for x in runs] == [len(family)]
+    else:
+        chunks = list(chunk_rounds([BucketStream(f) for f in family],
+                                   chunk_bytes))
+        assert len(chunks) >= 2
+        assert [x.n for x in runs] == [sum(1 for b in per_file if b)
+                                       for _i, per_file, _o in chunks]
+    spans = timers.spans()
+    by_id = {s.span: s for s in spans}
+    sorts = [s for s in spans if s.name == "group.sort"]
+    assert len(sorts) == len(runs)
+    assert all(by_id[s.parent].name == "compare.group" for s in sorts)
 
 
 def test_windows_count_every_kmer_before_the_dedup():
