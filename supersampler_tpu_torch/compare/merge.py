@@ -42,14 +42,13 @@ from typing import Dict, List, Optional, Set
 import numpy as np
 
 from supersampler_tpu_torch import default_device
-from supersampler_tpu_torch.compare.stream import (BucketStream,
-                                                   chunk_rounds,
-                                                   decode_bucket_pairs)
+from supersampler_tpu_torch.compare.stream import BucketStream, chunk_rounds
 from supersampler_tpu_torch.compare.writers import (matrix_csv,
                                                     write_matrix_gz)
 from supersampler_tpu_torch.io.fasta import read_fof
 from supersampler_tpu_torch.parallel.compare_dist import (
-    decode_files, group_pairs, score_matrix_device, scores_to_dict)
+    decode_files, decode_windows, group_pairs, score_matrix_device,
+    scores_to_dict)
 from supersampler_tpu_torch.parallel.mesh import make_mesh
 from supersampler_tpu_torch.utils.profiling import device_trace, phase
 
@@ -142,7 +141,7 @@ class TorchComparator:
         """fof lines with size > 2 (reference Comparator.cpp:7-21)."""
         return read_fof(fof_path, min_len=2)
 
-    def _open_files(self, query_size: int) -> List[str]:
+    def _open_files(self) -> List[str]:
         # Unopenable sketches print the reference's message and drop out
         # of the comparison; surviving files take compacted indices
         # (reference Comparator.cpp:45-51 + utils.cpp:357-364).
@@ -156,20 +155,17 @@ class TorchComparator:
                     print("Problem with file opening")
                     continue
                 opened.append(path)
-            self.query_size = query_size
-            self.nb_files = len(opened)
             return opened
 
     @_comparison
     def compare_sketches(self, query_size: int) -> None:
-        opened = self._open_files(query_size)
-        (mins, his, los, fids, self.nb_kmer_seen_infile, k, m,
-         query_minimizers) = decode_files(opened, query_size)
+        opened = self._open_files()
+        mins, his, los, fids, nb_seen, k, m, qmins = decode_files(
+            opened, query_size)
         if opened:
             # like get_header_info, the last file's header wins
             self.k, self.m = k, m
-        self._score_pairs(mins, his, los, fids, query_size,
-                          query_minimizers)
+        self.score_decoded(mins, his, los, fids, nb_seen, query_size, qmins)
 
     @_comparison
     def compare_sketches_chunked(self, query_size: int,
@@ -192,8 +188,9 @@ class TorchComparator:
         cooperative preemption), leaving the manifest.
 
         Returns True when the comparison completed."""
-        opened = self._open_files(query_size)
-        n = len(opened)
+        opened = self._open_files()
+        n = self.nb_files = len(opened)
+        self.query_size = query_size
         if n == 0:
             return True
         streams = [BucketStream(p) for p in opened]
@@ -215,30 +212,14 @@ class TorchComparator:
         self.max_chunk_pairs = 0
         done = True
         for idx, chunk, offsets in chunk_rounds(streams, chunk_bytes):
-            mins_l, his_l, los_l, fids_l = [], [], [], []
-            qmins: Set[int] = set()
-            with phase("compare.decode"):
-                for f, buckets in enumerate(chunk):
-                    if f < query_size:
-                        qmins.update(b[0] for b in buckets)
-                    if not buckets:
-                        continue
-                    mins, his, los = decode_bucket_pairs(buckets,
-                                                         self.k, self.m)
-                    self.nb_kmer_seen_infile[f] += int(mins.size)
-                    mins_l.append(mins)
-                    his_l.append(his)
-                    los_l.append(los)
-                    fids_l.append(np.full(mins.size, f, dtype=np.int64))
-            if mins_l:
-                mins = np.concatenate(mins_l)
-                his = np.concatenate(his_l)
-                los = np.concatenate(los_l)
-                fids = np.concatenate(fids_l)
-                self.max_chunk_pairs = max(self.max_chunk_pairs,
-                                           int(mins.size))
-                self._score_pairs(mins, his, los, fids, query_size,
-                                  qmins if query_size < n else None)
+            # every window decodes with the last file's header
+            mins, his, los, fids, nb_seen, _k, _m, qmins = decode_windows(
+                (None if w is None else w + (self.k, self.m)
+                 for w in chunk), n, query_size)
+            for f, seen in enumerate(nb_seen):
+                self.nb_kmer_seen_infile[f] += seen
+            self.max_chunk_pairs = max(self.max_chunk_pairs, int(mins.size))
+            self._score_pairs(mins, his, los, fids, query_size, qmins)
             if resume_path:
                 tmp = resume_path + ".tmp"
                 with open(tmp, "w") as f:
@@ -258,10 +239,25 @@ class TorchComparator:
             os.remove(resume_path)
         return done
 
+    def score_decoded(self, mins, his, los, fids, nb_seen: List[int],
+                      query_size: int,
+                      query_minimizers: Optional[Set[int]]) -> None:
+        """Score the decoded pairs of every compared file, as
+        decode_files gives them: (minimizer, k-mer, file) pair arrays in
+        file order, the pair count for each file, the query size and
+        the query minimizers (None: no filter). The post-decode half of
+        compare_sketches and of the multi-process comparison
+        (parallel/dist.py)."""
+        self.nb_files = len(nb_seen)
+        self.query_size = query_size
+        self.nb_kmer_seen_infile = list(nb_seen)
+        self._score_pairs(mins, his, los, fids, query_size,
+                          query_minimizers)
+
     def _score_pairs(self, mins, his, los, fids, query_size: int,
-                     query_minimizers: Optional[Set[int]] = None) -> None:
-        """Score decoded (minimizer, k-mer, file) pair arrays: the
-        post-decode half of compare_sketches and of each chunk.
+                     query_minimizers: Optional[Set[int]]) -> None:
+        """Score decoded (minimizer, k-mer, file) pair arrays of the
+        self.nb_files files: the whole comparison or one chunk of it.
         query_minimizers (query mode) filters the buckets scored."""
         n = self.nb_files
         if mins.size == 0:

@@ -8,19 +8,20 @@ restores the bounded-memory profile for the vectorized engine:
 
 * BucketStream: raw per-bucket cursor over one sketch, DECOMPRESSING
   INCREMENTALLY (a rolling window of the gzip stream — resident memory
-  per file is the window + buffered buckets, not the whole sketch)
-  with byte-offset checkpointing (sketches are sorted by minimizer,
-  reference SubSampler.h:62, so a global minimizer bound defines a
-  clean chunk boundary);
+  per file is the window, which holds the buffered buckets, not the
+  whole sketch) with byte-offset checkpointing (sketches are sorted by
+  minimizer, reference SubSampler.h:62, so a global minimizer bound
+  defines a clean chunk boundary);
 * chunk_rounds: the N-way chunker — each round buffers raw buckets up
   to a payload budget per file, takes the MIN of the files' high-water
   minimizers as the chunk bound, and yields every file's buckets at or
-  below it (all pairs of a minimizer land in exactly one chunk, so
-  per-chunk grouping/dedup equals global).
+  below it as one byte window (all pairs of a minimizer land in exactly
+  one chunk, so per-chunk grouping/dedup equals global).
 
-Bucket wire parsing and pair decoding are shared with the whole-file
-reader (compare/reader.py parse_bucket_at / decode_bucket_pairs) — one
-implementation, two consumption patterns.
+The header and the bucket bounds come from the whole-file reader
+(compare/reader.py parse_header / parse_bucket_at), and a chunk's
+windows decode through its native pass (parallel/compare_dist.py
+decode_windows), as whole sketches do.
 
 Chunks also give shard-resumable comparison (SURVEY §5): after each
 chunk the comparator can persist {per-file offsets, partial scores}
@@ -34,11 +35,11 @@ from __future__ import annotations
 import struct
 from typing import List, Optional, Tuple
 
-from supersampler_tpu_torch.compare.reader import (decode_bucket_pairs,
-                                                   parse_bucket_at)
+from supersampler_tpu_torch.compare.reader import (parse_bucket_at,
+                                                   parse_header)
 from supersampler_tpu_torch.io.fasta import open_maybe_gzip
 
-__all__ = ["BucketStream", "chunk_rounds", "decode_bucket_pairs"]
+__all__ = ["BucketStream", "chunk_rounds"]
 
 _READ_CHUNK = 1 << 18
 _COMPACT_AT = 1 << 20     # drop consumed window prefix beyond this
@@ -62,12 +63,8 @@ class BucketStream:
         while b"\n" not in self._win:
             if not self._more():
                 raise ValueError(f"no header line in {path}")
-        nl = self._win.index(b"\n")
-        parts = self._win[:nl].split(b" ")
-        self.skmer_size_hdr = int(parts[0])
-        self.m = int(parts[1])
-        self.k = (self.skmer_size_hdr + self.m) // 2
-        self.offset = (nl + 1) if offset is None else offset
+        self.k, self.m, pos0 = parse_header(self._win)
+        self.offset = pos0 if offset is None else offset
         if offset is not None:
             # seek: decompress forward and drop everything before it
             while self._base + len(self._win) < offset:
@@ -76,7 +73,8 @@ class BucketStream:
             cut = min(max(offset - self._base, 0), len(self._win))
             self._win = self._win[cut:]
             self._base += cut
-        self._buf: List[Tuple[int, int, bytes, List[bytes]]] = []
+        # (start, end, minimizer, payload bytes) of each buffered bucket
+        self._buf: List[Tuple[int, int, int, int]] = []
         self._bufi = 0            # consumed-prefix cursor
         self._buf_bytes = 0
 
@@ -105,7 +103,7 @@ class BucketStream:
         start = self.offset
         while True:
             try:
-                bucket, rel_end = parse_bucket_at(
+                mval, rel_end, payload = parse_bucket_at(
                     self._win, start - self._base, self.m)
                 break
             except (ValueError, IndexError, struct.error):
@@ -114,14 +112,14 @@ class BucketStream:
                         "truncated sketch bucket at offset "
                         f"{start}") from None
         self.offset = self._base + rel_end
-        mval, blob, lines = bucket
-        self._buf.append((start, mval, blob, lines))
-        self._buf_bytes += len(blob) + sum(len(x) for x in lines)
-        # bound the window: everything before the cursor is consumed
-        cut = self.offset - self._base
+        self._buf.append((start, self.offset, mval, payload))
+        self._buf_bytes += payload
+        # bound the window: everything before the first untaken bucket
+        # is consumed
+        cut = self.resume_offset() - self._base
         if cut > _COMPACT_AT:
             self._win = self._win[cut:]
-            self._base = self.offset
+            self._base += cut
 
     def fill(self, target_bytes: int) -> None:
         """Buffer raw buckets until ~target_bytes of payload (or EOF)."""
@@ -135,22 +133,26 @@ class BucketStream:
         as +inf so it never constrains the chunk bound."""
         if self._no_more_buckets():
             return 1 << 62
-        return self._buf[-1][1] if self._bufi < len(self._buf) else -1
+        return self._buf[-1][2] if self._bufi < len(self._buf) else -1
 
     def has_buffered(self) -> bool:
         return self._bufi < len(self._buf)
 
     def take_until(self, bound: int):
-        """Pop and return buffered (mval, blob, lines) buckets with
-        minimizer <= bound (index cursor: O(1) per bucket)."""
-        out = []
+        """Pop the buffered buckets with minimizer <= bound and return
+        them as one window (data, pos0, end) over the inflated bytes,
+        None when there is none (index cursor: O(1) per bucket). The
+        buckets lie next to each other, and data is never changed: a
+        compaction makes a new window."""
+        first = self._bufi
         while (self._bufi < len(self._buf)
-               and self._buf[self._bufi][1] <= bound):
-            _off, mval, blob, lines = self._buf[self._bufi]
+               and self._buf[self._bufi][2] <= bound):
+            self._buf_bytes -= self._buf[self._bufi][3]
             self._bufi += 1
-            self._buf_bytes -= (len(blob)
-                                + sum(len(x) for x in lines))
-            out.append((mval, blob, lines))
+        if self._bufi == first:
+            return None
+        out = (self._win, self._buf[first][0] - self._base,
+               self._buf[self._bufi - 1][1] - self._base)
         if self._bufi > 4096:
             del self._buf[: self._bufi]
             self._bufi = 0
@@ -167,13 +169,13 @@ class BucketStream:
 def chunk_rounds(streams: List[BucketStream], chunk_bytes: int):
     """Yield chunks of the N-way bucket merge under a payload budget.
 
-    Each yielded item is (chunk_index, per_file_buckets, offsets)
-    where per_file_buckets[f] is file f's raw buckets for the chunk's
-    minimizer range and offsets[f] is f's resume offset AFTER the
-    chunk. Every minimizer's buckets across all files land in exactly
-    one chunk (the bound is the min of the files' buffered high-water
-    minimizers, so no file can still hold an unread bucket at or below
-    it)."""
+    Each yielded item is (chunk_index, per_file_windows, offsets)
+    where per_file_windows[f] is the window (data, pos0, end) of file
+    f's buckets in the chunk's minimizer range (None when it has none)
+    and offsets[f] is f's resume offset AFTER the chunk. Every
+    minimizer's buckets across all files land in exactly one chunk (the
+    bound is the min of the files' buffered high-water minimizers, so
+    no file can still hold an unread bucket at or below it)."""
     per_file = max(chunk_bytes // max(len(streams), 1), 256)
     idx = 0
     while True:

@@ -215,8 +215,8 @@ def clean_pack_batch_native(data_view, starts, ends, ref_pool,
     return out_lens
 
 
-def decode_pairs_native(data: bytes, pos0: int, k: int, m: int):
-    """Every bucket of the sketch payload ``data[pos0:]`` decoded to its
+def decode_pairs_native(data: bytes, pos0: int, end: int, k: int, m: int):
+    """Every bucket of the sketch bytes ``data[pos0:end]`` decoded to its
     distinct canonical k-mers in one C pass
     (supersampler_tpu_torch/csrc/spsp_decode.c spsp_decode_pairs).
 
@@ -224,14 +224,17 @@ def decode_pairs_native(data: bytes, pos0: int, k: int, m: int):
     windows): buckets in file order, then (hi, lo) ascending; windows
     counts the k-mers before the per-bucket dedup. Raises ValueError
     for a bucket cut short or malformed, and for k or m the pass cannot
-    hold (k above 64 or m above 32)."""
+    hold (k above 64 or m above 32), and for a range outside data."""
     if not (1 <= m <= 32 and 1 <= k <= 64):
         raise ValueError(f"sketch header gives k={k}, m={m}: the decode "
                          "takes 1 <= k <= 64 and 1 <= m <= 32")
+    if not 0 <= pos0 <= end <= len(data):
+        raise ValueError(f"byte range [{pos0}, {end}) is outside the "
+                         f"{len(data)} bytes given")
     lib = get_lib()
     info = np.zeros(4, np.int64)
     buf = ctypes.c_char_p(data)
-    args = (buf, pos0, len(data), k, m)
+    args = (buf, pos0, end, k, m)
     rc = lib.spsp_decode_pairs(*args, None, None, None, None,
                                info.ctypes.data)
     if rc == 0:

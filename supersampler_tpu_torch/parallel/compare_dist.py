@@ -36,44 +36,48 @@ from typing import Dict, List, Optional, Set
 import numpy as np
 import torch
 
-from supersampler_tpu_torch.compare.reader import decode_sketch_pairs
+from supersampler_tpu_torch.compare.reader import decode_window, read_sketch
 from supersampler_tpu_torch.native import group_pairs_native
 from supersampler_tpu_torch.parallel.mesh import Mesh
 from supersampler_tpu_torch.utils.profiling import count, phase
 
 
-def decode_files(files: List[str], query_size: int = None):
-    """Decode sketches into one set of pair arrays, in file order.
+def decode_windows(windows, n: int, query_size: Optional[int]):
+    """Decode the windows of n sketches into one set of pair arrays, in
+    file order: the comparator's one way from sketch bytes to pairs.
 
+    windows gives, for each file in turn, None when the file has no
+    bucket to decode or its window (data, pos0, end, k, m) (see
+    compare/reader.py); it is drawn from inside ``compare.decode``.
     Returns (mins, his, los, file ids int64, per-file pair counts, k, m,
-    query minimizers). The last file's header gives k and m. The query
+    query minimizers). The last window gives k and m. The query
     minimizers are the bucket minimizers of files [0, query_size), or
-    None when query_size covers every file (all-vs-all: no filter).
+    None when query_size is None or covers every file (all-vs-all: no
+    filter).
     """
     with phase("compare.decode"):
-        n = len(files)
-        if query_size is None:
-            query_size = n
-        mins_l, his_l, los_l, fids_l = [], [], [], []
-        nb_seen = [0] * n
-        query_minimizers: Optional[Set[int]] = (set() if query_size < n
-                                                else None)
-        k = m = 0
-        for f, path in enumerate(files):
-            mins, his, los, k, m, bucket_mins = decode_sketch_pairs(path)
+        query = query_size is not None and query_size < n
+        query_minimizers: Optional[Set[int]] = set() if query else None
+        cols, nb_seen, k, m = [], [0] * n, 0, 0
+        for f, window in enumerate(windows):
+            if window is None:
+                continue
+            mins, his, los, bucket_mins = decode_window(*window)
+            k, m = window[3:]
             nb_seen[f] = int(mins.size)
-            mins_l.append(mins)
-            his_l.append(his)
-            los_l.append(los)
-            fids_l.append(np.full(mins.size, f, dtype=np.int64))
-            if query_minimizers is not None and f < query_size:
-                query_minimizers |= bucket_mins
-        if not files:
-            mins_l = his_l = los_l = [np.zeros(0, np.uint64)]
-            fids_l = [np.zeros(0, np.int64)]
-        return (np.concatenate(mins_l), np.concatenate(his_l),
-                np.concatenate(los_l), np.concatenate(fids_l), nb_seen, k, m,
+            cols.append((mins, his, los, np.full(mins.size, f, np.int64)))
+            if query and f < query_size:
+                query_minimizers.update(bucket_mins.tolist())
+        if not cols:
+            cols = [(np.zeros(0, np.uint64),) * 3 + (np.zeros(0, np.int64),)]
+        return (*(np.concatenate(c) for c in zip(*cols)), nb_seen, k, m,
                 query_minimizers)
+
+
+def decode_files(files: List[str], query_size: int = None):
+    """Decode whole sketches, each read as decode_windows reaches it:
+    decode_windows' result."""
+    return decode_windows(map(read_sketch, files), len(files), query_size)
 
 
 def group_pairs(mins, his, los, fids,

@@ -26,7 +26,7 @@ import torch
 import torch.distributed as dist
 
 from supersampler_tpu_torch.compare.merge import TorchComparator
-from supersampler_tpu_torch.compare.reader import decode_sketch_pairs
+from supersampler_tpu_torch.parallel.compare_dist import decode_files
 from supersampler_tpu_torch.sketch import subsample_file
 
 
@@ -121,13 +121,14 @@ def compare_all_vs_all_distributed(files: Sequence[str], mesh=None,
     if cnt == 1:
         comp.compare_sketches(query_size)
         return comp
-    parts = []
-    for f, path in owned_shard(list(enumerate(files)), idx, cnt):
-        mins, his, los, comp.k, comp.m, _ = decode_sketch_pairs(path)
-        parts.append(np.stack([mins, his, los,
-                               np.full(mins.size, f, np.uint64)]))
-    local = (np.concatenate(parts, axis=1) if parts
-             else np.zeros((4, 0), np.uint64))
+    owned = owned_shard(list(enumerate(files)), idx, cnt)
+    mins, his, los, fids, _seen, k, m, _q = decode_files(
+        [path for _f, path in owned])
+    if owned:
+        comp.k, comp.m = k, m
+    # local file ids -> global ones
+    fids = np.array([f for f, _path in owned], np.uint64)[fids]
+    local = np.stack([mins, his, los, fids])
     score_gathered_pairs(comp, _all_gather_pairs(local, cnt), query_size)
     return comp
 
@@ -140,9 +141,9 @@ def score_gathered_pairs(comp: TorchComparator, allp: np.ndarray,
     group_pairs takes them."""
     allp = allp[:, np.argsort(allp[3], kind="stable")]
     fids = allp[3].astype(np.int64)
-    n = comp.nb_files = len(comp.files_names)
-    comp.query_size = query_size
-    comp.nb_kmer_seen_infile = np.bincount(fids, minlength=n).tolist()
+    n = len(comp.files_names)
     qmins = (set(np.unique(allp[0][fids < query_size]).tolist())
              if query_size < n else None)
-    comp._score_pairs(allp[0], allp[1], allp[2], fids, query_size, qmins)
+    comp.score_decoded(allp[0], allp[1], allp[2], fids,
+                       np.bincount(fids, minlength=n).tolist(), query_size,
+                       qmins)

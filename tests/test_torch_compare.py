@@ -140,8 +140,9 @@ def _made_up_sketch(rng, k, m, n_buckets):
 @pytest.mark.parametrize("seed", range(3))
 def test_decode_made_up_sketches_matches_jax(tmp_path, k, m, seed):
     """The native pass against the JAX reader on seeded made-up sketches,
-    plain and gzipped, and decode_bucket_pairs over the file's parsed
-    buckets against the whole-file decode."""
+    plain and gzipped, and the pass over byte windows of the buckets
+    parse_bucket_at bounds (the whole payload and buckets 5-8) against
+    JAX's decode of its parsed buckets."""
     rng = np.random.default_rng(1000 * k + seed)
     data = _made_up_sketch(rng, k, m, 40)
     path = tmp_path / f"s{k}.gz"
@@ -152,18 +153,24 @@ def test_decode_made_up_sketches_matches_jax(tmp_path, k, m, seed):
     _same_pairs(got, JR.decode_sketch_pairs(str(path)))
     _same_pairs(TR.decode_sketch_pairs(str(plain)), got)
     assert got[0].size > 0 and got[1].any() == (k > 32)
-    buckets, pos = [], data.index(b"\n") + 1
+    bounds, buckets, pos = [], [], data.index(b"\n") + 1
     while pos + m <= len(data):
-        bucket, pos = TR.parse_bucket_at(data, pos, m)
+        mval, end, payload = TR.parse_bucket_at(data, pos, m)
+        bucket, jend = JR.parse_bucket_at(data, pos, m)
+        assert (mval, end) == (bucket[0], jend)
+        assert payload == len(bucket[1]) + sum(map(len, bucket[2]))
+        bounds.append((pos, end))
         buckets.append(bucket)
+        pos = end
     assert len(buckets) == 40
     assert set(b[0] for b in buckets) == got[5]
-    whole = TR.decode_bucket_pairs(buckets, k, m)
-    _same_pairs(whole, got[:3])
-    _same_pairs(whole, JR.decode_bucket_pairs(buckets, k, m))
+    whole = TR.decode_window(data, bounds[0][0], len(data), k, m)
+    _same_pairs(whole[:3], got[:3])
+    _same_pairs(whole[:3], JR.decode_bucket_pairs(buckets, k, m))
     # a chunk of the buckets, as the chunked comparator decodes them
-    part = TR.decode_bucket_pairs(buckets[5:9], k, m)
-    _same_pairs(part, JR.decode_bucket_pairs(buckets[5:9], k, m))
+    part = TR.decode_window(data, bounds[5][0], bounds[8][1], k, m)
+    _same_pairs(part[:3], JR.decode_bucket_pairs(buckets[5:9], k, m))
+    assert part[3].tolist() == [b[0] for b in buckets[5:9]]
 
 
 def test_decode_repeats_and_header_only(tmp_path):
@@ -238,15 +245,50 @@ def test_decode_truncated_sketch_as_jax(tmp_path, name):
         TR.decode_sketch_pairs(path)
 
 
+def _same_chunks(got, want):
+    """chunk_rounds' chunks against the JAX package's: the same chunks
+    and offsets, and each file's window decodes to the pairs and the
+    bucket minimizers of JAX's buckets for that file."""
+    k, m = TST.BucketStream(_FILES[0]).k, TST.BucketStream(_FILES[0]).m
+    assert len(got) == len(want)
+    for (idx, windows, offsets), (jidx, jchunk, joffsets) in zip(got, want):
+        assert (idx, offsets) == (jidx, joffsets)
+        assert len(windows) == len(jchunk)
+        for window, buckets in zip(windows, jchunk):
+            assert (window is None) == (not buckets)
+            if window is not None:
+                pairs = TR.decode_window(*window, k, m)
+                _same_pairs(pairs[:3], JR.decode_bucket_pairs(buckets, k, m))
+                assert pairs[3].tolist() == [b[0] for b in buckets]
+
+
 @pytest.mark.parametrize("chunk_bytes", [1 << 10, 1 << 14, 1 << 30])
 def test_chunk_rounds_matches_jax(chunk_bytes):
     got = list(TST.chunk_rounds([TST.BucketStream(p) for p in _FILES],
                                 chunk_bytes))
     want = list(JST.chunk_rounds([JST.BucketStream(p) for p in _FILES],
                                  chunk_bytes))
-    assert got == want and got
+    assert got
+    _same_chunks(got, want)
     if chunk_bytes == 1 << 10:
         assert len(got) > 4
+
+
+def test_chunk_windows_survive_compaction(monkeypatch):
+    """With the stream's window compacted after nearly every bucket,
+    the buckets buffered but not yet taken keep their bytes: every
+    window still decodes to JAX's chunk."""
+    monkeypatch.setattr(TST, "_COMPACT_AT", 64)
+    streams = [TST.BucketStream(p) for p in _FILES]
+    got, kept = [], 0
+    for item in TST.chunk_rounds(streams, 1 << 10):
+        got.append(item)
+        # a compaction happened and buckets wait for a later chunk
+        kept += sum(st._base > 0 and st.has_buffered() for st in streams)
+    want = list(JST.chunk_rounds([JST.BucketStream(p) for p in _FILES],
+                                 1 << 10))
+    assert len(got) > 1 and kept > 0
+    _same_chunks(got, want)
 
 
 @pytest.mark.parametrize("jaccard", [False, True])
@@ -438,18 +480,15 @@ def _shared_pairs(seed, n_files, n_min=300, wide=False, reverse=()):
 
 def _chunk_pairs():
     """The pairs of one chunk of compare_sketches_chunked, built as it
-    builds them."""
+    builds them: its windows through decode_windows."""
     rounds = list(TST.chunk_rounds([TST.BucketStream(p) for p in _FILES],
                                    1 << 10))
     assert len(rounds) > 4
     _idx, chunk, _offsets = rounds[len(rounds) // 2]
     k, m = TST.BucketStream(_FILES[0]).k, TST.BucketStream(_FILES[0]).m
-    cols = []
-    for f, buckets in enumerate(chunk):
-        if buckets:
-            mins, his, los = TST.decode_bucket_pairs(buckets, k, m)
-            cols.append((mins, his, los, np.full(mins.size, f, np.int64)))
-    return tuple(np.concatenate([c[i] for c in cols]) for i in range(4))
+    return TCD.decode_windows(
+        (None if w is None else w + (k, m) for w in chunk), len(chunk),
+        None)[:4]
 
 
 def _grouping_case(case):

@@ -10,6 +10,7 @@ equal with and without the profiler, the sketch's threads."""
 import collections
 import json
 import os
+import struct
 import sys
 import threading
 
@@ -245,14 +246,16 @@ def test_grouping_counts_one_run_per_sketch(family, chunk_bytes):
 def test_windows_count_every_kmer_before_the_dedup():
     """A bucket whose two super-k-mers repeat each other: twice the
     windows, the pairs once."""
-    from supersampler_tpu_torch.compare.reader import decode_bucket_pairs
+    from supersampler_tpu_torch.compare.reader import decode_window
 
     k, m = 5, 3
     left, right = b"AA", b"CA"
-    lines = [left, right, left, right]
+    # minimizer ACG, an empty blob, two equal line pairs, the blank pair
+    data = (b"ACG" + struct.pack("<I", 0)
+            + b"\n".join([left, right, left, right]) + b"\n\n\n")
     timers.reset()
     with _session():
-        mins, _his, _los = decode_bucket_pairs([(7, b"", lines)], k, m)
+        mins = decode_window(data, 0, len(data), k, m)[0]
     n = _totals(timers.counters())
     timers.reset()
     assert n["decode.windows"] == 2 * 3
