@@ -25,9 +25,13 @@ Counterpart of supersampler_tpu/compare/merge.py.
 Under a torch.profiler session each comparison records its spans on
 utils/profiling.py's tracer: the root ``compare.call`` (with
 ``device_trace("compare")`` around it), ``compare.open``,
-``compare.decode`` (parallel/compare_dist.py; per file ``decode.read``
-and ``decode.pass``), ``compare.group`` (``group.sort``, the native
-grouping pass; counter ``group.runs``), ``compare.score``
+``compare.decode`` (parallel/compare_dist.py; for whole sketches one
+``decode.read``, the native read of every file, and for whole sketches
+and each chunk one ``decode.pass``, the native pass over every window;
+counters ``decode.read.threads``, ``decode.inflated_bytes``,
+``decode.pass.threads``, ``decode.windows``, ``decode.pairs``),
+``compare.group`` (``group.sort``, the native grouping pass; counter
+``group.runs``), ``compare.score``
 (``score.h2d``, ``score.product``, ``score.fetch``), ``compare.tally``,
 and ``compare.csv`` for each CSV.
 """

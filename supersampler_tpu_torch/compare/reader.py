@@ -1,23 +1,33 @@
-"""Sketch decoding: sketch bytes -> (minimizer, canonical k-mer) pair
+"""Sketch decoding: sketch files -> (minimizer, canonical k-mer) pair
 arrays.
 
 The one module of the comparator that knows the sketch format, with the
-native pass. Replicates the reference's bucket decode (reference
+native stages it drives (native.py, C in supersampler_tpu_torch/csrc/).
+Replicates the reference's bucket decode (reference
 Comparator.cpp:78-92 inject_minimizer, 97-264 rolling k-mer extraction
-+ canonize) in one native pass over a byte window of whole buckets
-(native.py ``decode_pairs_native``, C
-``supersampler_tpu_torch/csrc/spsp_decode.c``): 2-bit blob unpack,
-minimizer re-injection, rolling canonical k-mers as (hi, lo) uint64
-pairs, the per-bucket dedup. The streaming comparator finds bucket
-bounds with ``parse_bucket_at`` and hands its windows to the same
-pass. The port's counterpart of supersampler_tpu/compare/reader.py.
++ canonize) in two native calls a decode, each on up to 8 threads:
+
+* the read (``read_sketches``, ``spsp_read.c``): every sketch opened,
+  read and inflated, the bytes pooled in file order, then each header
+  line parsed here (``parse_header``);
+* the pass (``decode_pass``, ``spsp_decode.c``): every window of whole
+  buckets at once, 2-bit blob unpack, minimizer re-injection, rolling
+  canonical k-mers as (hi, lo) uint64 pairs, the per-bucket dedup,
+  written into one set of concatenated pair arrays and file ids.
+
+The streaming comparator finds bucket bounds with ``parse_bucket_at``
+and hands its windows to the same pass. The port's counterpart of
+supersampler_tpu/compare/reader.py.
 
 A window is (data, pos0, end, k, m): the inflated sketch bytes
 data[pos0:end], whole buckets, and the header's k and m.
 
-Spans and counters (utils/profiling.py, in a profiler session):
-``decode.read`` (open and inflate) and ``decode.pass`` (the native
-pass); ``decode.windows`` (k-mer windows before the dedup) and
+Spans and counters (utils/profiling.py, in a profiler session), one of
+each per read and per pass, whatever the number of files: ``decode.read``
+(open and inflate) and ``decode.pass`` (the native pass);
+``decode.read.threads`` and ``decode.pass.threads`` (the threads each
+ran on), ``decode.inflated_bytes`` (the bytes read, inflated),
+``decode.windows`` (k-mer windows before the dedup) and
 ``decode.pairs`` (after it).
 """
 
@@ -28,8 +38,8 @@ import struct
 import numpy as np
 
 from supersampler_tpu_torch.core.scalar import NUC2INT_LUT
-from supersampler_tpu_torch.io.fasta import open_maybe_gzip
-from supersampler_tpu_torch.native import decode_pairs_native
+from supersampler_tpu_torch.native import (decode_windows_native,
+                                           read_files_native)
 from supersampler_tpu_torch.utils.profiling import count, phase
 
 
@@ -74,27 +84,56 @@ def parse_bucket_at(data: bytes, pos: int, m: int):
     return mval, nl2 + 1, payload
 
 
-def read_sketch(path: str):
-    """The window of a whole sketch's buckets, read and inflated inside
-    ``decode.read``."""
+def read_sketches(paths):
+    """The windows of whole sketches, read and inflated in one native
+    call inside ``decode.read``: one window a file, in file order, each
+    over its file's part of one buffer of their bytes. Raises for the
+    first file, in order, that cannot be read or has no header what
+    reading it alone with Python's open and gzip, then parse_header,
+    raises: OSError (such as FileNotFoundError), EOFError for a gzip
+    member cut short, gzip.BadGzipFile or zlib.error for bad gzip data,
+    ValueError for no header line."""
     with phase("decode.read"):
-        with open_maybe_gzip(path) as f:
-            data = f.read()
-        k, m, pos0 = parse_header(data)
-    return data, pos0, len(data), k, m
+        got = read_files_native(paths)
+        windows = []
+        for i, (status, start, end, line) in enumerate(zip(
+                got.status.tolist(), got.offs[:-1].tolist(),
+                got.offs[1:].tolist(), got.pos0.tolist())):
+            if status:
+                raise got.error(i, paths[i])
+            data = got.pool[start:end]
+            k, m, pos0 = parse_header(data[:line or None].tobytes())
+            windows.append((data, pos0, end - start, k, m))
+    count("decode.read.threads", got.threads)
+    count("decode.inflated_bytes", got.pool.size)
+    return windows
 
 
-def decode_window(data: bytes, pos0: int, end: int, k: int, m: int):
-    """The native pass over the buckets of data[pos0:end], with its
-    counters: distinct (mins, hi, lo) pairs, deduplicated per
+def read_sketch(path: str):
+    """The window of a whole sketch's buckets (read_sketches of one)."""
+    return read_sketches([path])[0]
+
+
+def decode_pass(windows, fids, n_query: int):
+    """The native pass over every window at once inside ``decode.pass``,
+    with its counters: native.py ``decode_windows_native``'s Decoded,
+    the distinct (mins, hi, lo) pairs of each window, deduplicated per
     (minimizer, kmer) as the reference's per-bucket color/skip maps do
-    (Comparator.cpp:97-264), and the bucket minimizers."""
+    (Comparator.cpp:97-264), with fids, each window's file id, beside
+    them, and the bucket minimizers of the first n_query windows."""
     with phase("decode.pass"):
-        mins, his, los, bmins, windows = decode_pairs_native(data, pos0,
-                                                             end, k, m)
-    count("decode.windows", windows)
-    count("decode.pairs", mins.size)
-    return mins, his, los, bmins
+        got = decode_windows_native(windows, fids, n_query)
+    count("decode.pass.threads", got.threads)
+    count("decode.windows", got.windows)
+    count("decode.pairs", got.mins.size)
+    return got
+
+
+def decode_window(data, pos0: int, end: int, k: int, m: int):
+    """The native pass over the buckets of data[pos0:end] alone: its
+    distinct (mins, hi, lo) pairs and its bucket minimizers."""
+    got = decode_pass([(data, pos0, end, k, m)], [0], 1)
+    return got.mins, got.his, got.los, got.bmins
 
 
 def decode_sketch_pairs(path: str):

@@ -1,11 +1,13 @@
 /* Native sketch decode and pair grouping for the port's comparator.
  *
- * Decode: one pass over a sketch's inflated wire bytes turns every
- * bucket into its distinct canonical k-mers, in the order the
- * comparator groups them: buckets in file order, then (hi, lo)
- * ascending.  It does what the reference's inject_minimizer, rolling
- * k-mer extraction and per-bucket colour maps do (reference
- * Comparator.cpp:78-264).
+ * Decode (spsp_decode_windows): one pass over the windows of a
+ * comparison's inflated wire bytes, a window being whole buckets of one
+ * sketch, turns every bucket into its distinct canonical k-mers, in the
+ * order the comparator groups them: windows in file order, buckets in
+ * window order, then (hi, lo) ascending, all in one set of concatenated
+ * arrays.  It does what the reference's inject_minimizer, rolling k-mer
+ * extraction and per-bucket colour maps do (reference
+ * Comparator.cpp:78-264).  The windows go to up to 8 threads.
  *
  * Wire format of a bucket (reference SubSampler.cpp:456-504): m ASCII
  * minimizer characters, a u32 little-endian blob size, the blob (a
@@ -22,7 +24,9 @@
  * k-mer) without a global sort, from the order the decode gives.
  */
 
+#define _GNU_SOURCE
 #include <pthread.h>
+#include <sched.h>
 #include <stdint.h>
 #include <stdlib.h>
 #include <string.h>
@@ -135,18 +139,26 @@ static void roll(const uint8_t *seq, int64_t len, int k, u128 mask,
     }
 }
 
+/* The scratch arrays of one thread's windows, kept from one window to
+ * the next. */
+typedef struct {
+    buf_t codes, row, keys, tmp;
+} scratch_t;
+
 /* Decode the buckets of data[pos0, end).
  *
  * With mins == NULL only walks and counts: info[0] the k-mer windows,
  * info[2] the buckets.  Otherwise also writes each bucket's distinct
  * canonical k-mers (mins/hi/lo, room for info[0] from a counting call)
- * and its minimizer (bmins, room for info[2]); info[1] the pairs.
- * Returns 0, -1 for a bucket that is cut short or malformed (info[3]
- * its offset in data), -2 when out of memory.  Never reads outside
- * [pos0, end) nor writes past the counts of the counting call. */
-int64_t spsp_decode_pairs(const uint8_t *data, int64_t pos0, int64_t end,
-                          int k, int m, uint64_t *mins, uint64_t *hi,
-                          uint64_t *lo, uint64_t *bmins, int64_t *info)
+ * and, where bmins is not NULL, its minimizer (room for info[2]);
+ * info[1] the pairs.  Returns 0, -1 for a bucket that is cut short or
+ * malformed (info[3] its offset in data), -2 when out of memory.
+ * Never reads outside [pos0, end) nor writes past the counts of the
+ * counting call. */
+static int64_t decode_window(const uint8_t *data, int64_t pos0, int64_t end,
+                             int k, int m, uint64_t *mins, uint64_t *hi,
+                             uint64_t *lo, uint64_t *bmins, int64_t *info,
+                             scratch_t *s)
 {
     const int half = k - m;
     const int64_t row_len = 2 * (int64_t)half + m;
@@ -155,7 +167,6 @@ int64_t spsp_decode_pairs(const uint8_t *data, int64_t pos0, int64_t end,
     for (unsigned c = 0; c < 4; c++)
         rc_in[c] = (u128)(c ^ 2) << (2 * (k - 1));
     uint8_t mc[32];
-    buf_t codes = {0}, row = {0}, keys = {0}, tmp = {0};
     int64_t windows = 0, pairs = 0, nb = 0, rc = 0;
     int64_t pos = pos0;
     info[3] = -1;
@@ -188,9 +199,9 @@ int64_t spsp_decode_pairs(const uint8_t *data, int64_t pos0, int64_t end,
             n_codes = 4 * nfull + mod;
             n_sk = half > 0 ? n_codes / (2 * half) : 0;
             if (mins && n_sk > 0) {
-                if (grow(&codes, n_codes, 1))
+                if (grow(&s->codes, n_codes, 1))
                     goto oom;
-                uint8_t *c = codes.p;
+                uint8_t *c = s->codes.p;
                 for (int64_t i = 0; i < nfull; i++) {
                     const uint8_t b = blob[1 + i];
                     c[4 * i] = b >> 6;
@@ -206,16 +217,16 @@ int64_t spsp_decode_pairs(const uint8_t *data, int64_t pos0, int64_t end,
         }
         int64_t nw = n_sk * (half + 1);
         if (mins && n_sk > 0) {
-            if (grow(&keys, nw, sizeof(u128)) || grow(&row, row_len, 1))
+            if (grow(&s->keys, nw, sizeof(u128)) || grow(&s->row, row_len, 1))
                 goto oom;
-            uint8_t *r = row.p;
-            const uint8_t *c = codes.p;
+            uint8_t *r = s->row.p;
+            const uint8_t *c = s->codes.p;
             memcpy(r + half, mc, m);
-            for (int64_t s = 0; s < n_sk; s++) {
-                memcpy(r, c + s * 2 * half, half);
-                memcpy(r + half + m, c + s * 2 * half + half, half);
+            for (int64_t j = 0; j < n_sk; j++) {
+                memcpy(r, c + j * 2 * half, half);
+                memcpy(r + half + m, c + j * 2 * half + half, half);
                 roll(r, row_len, k, mask, rc_in,
-                     (u128 *)keys.p + s * (half + 1));
+                     (u128 *)s->keys.p + j * (half + 1));
             }
         }
 
@@ -237,16 +248,16 @@ int64_t spsp_decode_pairs(const uint8_t *data, int64_t pos0, int64_t end,
             if (len < k)
                 continue;
             if (mins) {
-                if (grow(&keys, nw + len - k + 1, sizeof(u128))
-                    || grow(&row, len, 1))
+                if (grow(&s->keys, nw + len - k + 1, sizeof(u128))
+                    || grow(&s->row, len, 1))
                     goto oom;
-                uint8_t *r = row.p;
+                uint8_t *r = s->row.p;
                 for (int64_t i = 0; i < l1; i++)
                     r[i] = (data[p1 + i] >> 1) & 3;
                 memcpy(r + l1, mc, m);
                 for (int64_t i = 0; i < l2; i++)
                     r[l1 + m + i] = (data[p2 + i] >> 1) & 3;
-                roll(r, len, k, mask, rc_in, (u128 *)keys.p + nw);
+                roll(r, len, k, mask, rc_in, (u128 *)s->keys.p + nw);
             }
             nw += len - k + 1;
         }
@@ -254,9 +265,9 @@ int64_t spsp_decode_pairs(const uint8_t *data, int64_t pos0, int64_t end,
 
         if (mins) {
             /* the bucket's distinct k-mers, ascending */
-            if (grow(&tmp, nw, sizeof(u128)))
+            if (grow(&s->tmp, nw, sizeof(u128)))
                 goto oom;
-            const u128 *a = sort_keys(keys.p, nw, 2 * k, tmp.p);
+            const u128 *a = sort_keys(s->keys.p, nw, 2 * k, s->tmp.p);
             for (int64_t i = 0; i < nw; i++) {
                 if (i && a[i] == a[i - 1])
                     continue;
@@ -265,7 +276,8 @@ int64_t spsp_decode_pairs(const uint8_t *data, int64_t pos0, int64_t end,
                 lo[pairs] = (uint64_t)a[i];
                 pairs++;
             }
-            bmins[nb] = mval;
+            if (bmins)
+                bmins[nb] = mval;
         }
         nb++;
         continue;
@@ -278,13 +290,168 @@ bad:
 oom:
     rc = -2;
 done:
-    free(codes.p);
-    free(row.p);
-    free(keys.p);
-    free(tmp.p);
     info[0] = windows;
     info[1] = pairs;
     info[2] = nb;
+    return rc;
+}
+
+/* Threads.  A native stage runs on the caller's thread and up to
+ * MAX_THREADS - 1 more, which take its items one at a time from a
+ * shared counter, so results land by item index whichever thread made
+ * them. */
+enum { MAX_THREADS = 8, PART_BYTES = 1 << 16 };
+
+/* The threads for n_items items that come to about parts parts of
+ * PART_BYTES: the smallest of MAX_THREADS, the CPUs this process may
+ * run on, n_items and parts, and at least 1.  Where pinned is above 0
+ * (the tests), the smaller of pinned, MAX_THREADS and n_items. */
+int spsp_stage_threads(int64_t n_items, int64_t parts, int64_t pinned)
+{
+    int64_t t = MAX_THREADS;
+    if (pinned > 0) {
+        t = pinned < t ? pinned : t;
+    } else {
+        cpu_set_t set;
+        const int64_t cpus = sched_getaffinity(0, sizeof set, &set) == 0
+                             ? CPU_COUNT(&set) : 1;
+        t = cpus < t ? cpus : t;
+        t = parts < t ? parts : t;
+    }
+    t = n_items < t ? n_items : t;
+    return t > 1 ? (int)t : 1;
+}
+
+/* Run worker(ctx) on the caller's thread and on threads - 1 new ones;
+ * the work is shared through ctx, so a thread that fails to start only
+ * leaves more to the others.  Returns the threads that ran. */
+int spsp_run_threads(int threads, void *(*worker)(void *), void *ctx)
+{
+    pthread_t th[MAX_THREADS];
+    int started = 0;
+    for (int t = 1; t < threads && t < MAX_THREADS; t++)
+        started += !pthread_create(&th[started], NULL, worker, ctx);
+    worker(ctx);
+    for (int t = 0; t < started; t++)
+        pthread_join(th[t], NULL);
+    return started + 1;
+}
+
+/* The windows of one decode, shared by its threads. */
+typedef struct {
+    const uint8_t *const *data;
+    const int64_t *win;
+    int64_t *out;
+    const int64_t *off, *boff;
+    uint64_t *mins, *hi, *lo, *bmins;
+    int64_t *fids;
+    int64_t n, n_query, next;
+    int oom;
+} pass_t;
+
+static void *pass_worker(void *arg)
+{
+    pass_t *p = arg;
+    scratch_t s = {0};
+    int64_t i, info[4];
+    while ((i = __atomic_fetch_add(&p->next, 1, __ATOMIC_RELAXED)) < p->n) {
+        const int64_t *w = p->win + 5 * i;
+        int64_t *o = p->out + 4 * i;
+        const int64_t at = p->mins ? p->off[i] : 0;
+        const int64_t rc =
+            p->mins ? decode_window(p->data[i], w[0], w[1], (int)w[2],
+                                    (int)w[3], p->mins + at, p->hi + at,
+                                    p->lo + at, i < p->n_query
+                                    ? p->bmins + p->boff[i] : NULL, info, &s)
+                    : decode_window(p->data[i], w[0], w[1], (int)w[2],
+                                    (int)w[3], NULL, NULL, NULL, NULL, info,
+                                    &s);
+        if (rc == -2)
+            __atomic_store_n(&p->oom, 1, __ATOMIC_RELAXED);
+        o[0] = info[0];
+        o[1] = info[2];
+        o[2] = info[1];
+        o[3] = info[3];
+        for (int64_t j = 0; p->mins && j < info[1]; j++)
+            p->fids[at + j] = w[4];
+    }
+    free(s.codes.p);
+    free(s.row.p);
+    free(s.keys.p);
+    free(s.tmp.p);
+    return NULL;
+}
+
+/* Decode the n windows of one comparison or chunk in one pass, on up to
+ * MAX_THREADS threads (threads > 0 pins their number).  Window i is
+ * data[i][pos0, end) with win[5 i ..] = pos0, end, k, m, file id; the
+ * first n_query windows are the query files'.
+ *
+ * Called twice.  With mins == NULL it counts: out[4 i ..] = window i's
+ * k-mer windows and buckets; info[0] the k-mer windows of all, info[4]
+ * the buckets of the query windows.  Then, with out as the counting
+ * call left it, it fills mins/hi/lo and fids (room for info[0]) with
+ * every window's distinct pairs in window order, and bmins (room for
+ * info[4]) with the query windows' bucket minimizers; out[4 i + 2] =
+ * window i's pairs, info[1] the pairs of all.  info[2] the threads
+ * that ran.  Returns 0, -1 for a window with a bucket cut short or
+ * malformed (info[3] the first such window, out[4 i + 3] its offset),
+ * -2 when out of memory. */
+int64_t spsp_decode_windows(int64_t n, int64_t n_query,
+                            const uint8_t *const *data, const int64_t *win,
+                            int64_t threads, int64_t *out, uint64_t *mins,
+                            uint64_t *hi, uint64_t *lo, int64_t *fids,
+                            uint64_t *bmins, int64_t *info)
+{
+    pass_t p = {data, win, out, NULL, NULL, mins, hi, lo, bmins, fids,
+                n, n_query, 0, 0};
+    int64_t *off = NULL, rc = 0, bytes = 0;
+    for (int64_t i = 0; i < n; i++)
+        bytes += win[5 * i + 1] - win[5 * i];
+    if (mins) {
+        /* each window's pairs, and query buckets, from where the ones
+         * before it end at most */
+        off = malloc(2 * (n + 1) * sizeof(int64_t));
+        if (!off)
+            return -2;
+        off[0] = off[n + 1] = 0;
+        for (int64_t i = 0; i < n; i++) {
+            off[i + 1] = off[i] + out[4 * i];
+            off[n + 2 + i] = off[n + 1 + i] + (i < n_query ? out[4 * i + 1]
+                                                            : 0);
+        }
+        p.off = off;
+        p.boff = off + n + 1;
+    }
+    info[2] = spsp_run_threads(
+        spsp_stage_threads(n, bytes / PART_BYTES, threads), pass_worker, &p);
+    info[0] = info[1] = info[4] = 0;
+    info[3] = -1;
+    for (int64_t i = 0; i < n; i++) {
+        if (out[4 * i + 3] >= 0 && info[3] < 0)
+            info[3] = i;
+        info[0] += out[4 * i];
+        info[4] += i < n_query ? out[4 * i + 1] : 0;
+    }
+    if (p.oom)
+        rc = -2;
+    else if (info[3] >= 0)
+        rc = -1;
+    else if (mins) {
+        /* close the gaps the dedup left: each window's pairs move down
+         * to where the ones before it end, in window order */
+        for (int64_t i = 0; i < n; i++) {
+            const int64_t at = off[i], c = out[4 * i + 2];
+            if (info[1] != at) {
+                memmove(mins + info[1], mins + at, c * sizeof *mins);
+                memmove(hi + info[1], hi + at, c * sizeof *hi);
+                memmove(lo + info[1], lo + at, c * sizeof *lo);
+                memmove(fids + info[1], fids + at, c * sizeof *fids);
+            }
+            info[1] += c;
+        }
+    }
+    free(off);
     return rc;
 }
 

@@ -3,15 +3,31 @@
 The port's copy of what it uses from supersampler_tpu/native.py: the
 long-double FHS threshold, the one-pass clean + 2-bit pack of a record
 or of a chunk's records, and the C finisher (k-mer store,
-reconstruction, serialization); and the port's own sketch decode and
-pair grouping for the comparator. The threshold and the finisher come
-from the repo's shared ``csrc/spsp_native.c`` and ``csrc/spsp_finish.c``;
-the clean + pack from the port's own
+reconstruction, serialization); and the port's own sketch read and
+decode and pair grouping for the comparator. The threshold and the
+finisher come from the repo's shared ``csrc/spsp_native.c`` and
+``csrc/spsp_finish.c``; the clean + pack from the port's own
 ``supersampler_tpu_torch/csrc/spsp_io.c``, whose fast path strips every
 non-ACGT byte as the reference does (the shared copy keeps a few, see
-that file); the decode and the grouping from
-``supersampler_tpu_torch/csrc/spsp_decode.c``. They compile with the
-system C compiler into the port's own ``build/libspsp_torch_native.so``
+that file); the comparator's three native stages from the port's
+``supersampler_tpu_torch/csrc/``, each on up to 8 threads, with the
+interpreter lock released for the whole call as ctypes does:
+
+* ``read_files_native`` (``spsp_read.c``): every sketch of a comparison
+  opened, read whole and inflated (gzip members as Python's gzip module
+  reads them; zlib's raw inflate), the end of its header line found, and
+  the bytes copied into one pooled buffer in file order;
+* ``decode_windows_native`` (``spsp_decode.c``): one pass over every
+  byte window of whole buckets, each a file's part of that pool or the
+  caller's bytes, into one set of concatenated pair arrays and file ids;
+* ``group_pairs_native`` (``spsp_decode.c``): the pairs numbered by
+  distinct (minimizer, k-mer).
+
+The read's and the pass's threads follow their input: the fewest of 8,
+the CPUs the process may run on, its files or windows, and for the pass
+one for every 64 KiB, so a single small sketch stays on the caller's
+thread. The sources compile with the system C compiler,
+linked with zlib, into the port's own ``build/libspsp_torch_native.so``
 at first use, and again when a source is newer than the library. A
 failed build raises: there are no Python fallbacks.
 """
@@ -19,9 +35,12 @@ failed build raises: there are no Python fallbacks.
 from __future__ import annotations
 
 import ctypes
+import gzip
 import os
 import subprocess
 import threading
+import zlib
+from typing import NamedTuple
 
 import numpy as np
 
@@ -30,7 +49,8 @@ _ROOT = os.path.dirname(_PKG)
 _SOURCES = [os.path.join(_ROOT, "csrc", "spsp_native.c"),
             os.path.join(_ROOT, "csrc", "spsp_finish.c"),
             os.path.join(_PKG, "csrc", "spsp_io.c"),
-            os.path.join(_PKG, "csrc", "spsp_decode.c")]
+            os.path.join(_PKG, "csrc", "spsp_decode.c"),
+            os.path.join(_PKG, "csrc", "spsp_read.c")]
 _LIB = os.path.join(_ROOT, "build", "libspsp_torch_native.so")
 
 _lock = threading.Lock()
@@ -56,7 +76,7 @@ def _build() -> None:
     errors = []
     for cc in ("cc", "gcc", "clang"):
         cmd = [cc, "-O3", "-march=native", "-shared", "-fPIC", "-pthread",
-               "-o", tmp, *_SOURCES, "-lm"]
+               "-o", tmp, *_SOURCES, "-lm", "-lz"]
         try:
             r = subprocess.run(cmd, capture_output=True, text=True)
         except FileNotFoundError:
@@ -96,8 +116,13 @@ def get_lib() -> ctypes.CDLL:
         lib.spsp_clean_pack.argtypes = [_P, _I64, _P, _P, _I64, _I64]
         lib.spsp_clean_pack_batch.argtypes = (
             [_P] + [_P] * 2 + [_I64] + [_P] * 6)
-        lib.spsp_decode_pairs.restype = _I64
-        lib.spsp_decode_pairs.argtypes = [_P, _I64, _I64, _I, _I] + [_P] * 5
+        lib.spsp_read_files.restype = _I64
+        lib.spsp_read_files.argtypes = [_I64, _P, _I64, _P]
+        lib.spsp_read_collect.restype = None
+        lib.spsp_read_collect.argtypes = [_I64, _P, _P, _P]
+        lib.spsp_decode_windows.restype = _I64
+        lib.spsp_decode_windows.argtypes = (
+            [_I64, _I64, _P, _P, _I64] + [_P] * 7)
         lib.spsp_group_pairs.restype = _I64
         lib.spsp_group_pairs.argtypes = [_P] * 4 + [_I64] + [_P] * 3
         _lib = lib
@@ -215,42 +240,151 @@ def clean_pack_batch_native(data_view, starts, ends, ref_pool,
     return out_lens
 
 
-def decode_pairs_native(data: bytes, pos0: int, end: int, k: int, m: int):
-    """Every bucket of the sketch bytes ``data[pos0:end]`` decoded to its
-    distinct canonical k-mers in one C pass
-    (supersampler_tpu_torch/csrc/spsp_decode.c spsp_decode_pairs).
+# the columns of spsp_read_files' rows and their codes
+# (supersampler_tpu_torch/csrc/spsp_read.c)
+_R_BUF, _R_SIZE, _R_STATUS, _R_CODE, _R_MSG, _R_POS0 = range(6)
+_READ_OS, _READ_EOF, _READ_BAD_GZIP, _READ_ZLIB = range(1, 5)
+_GZ_REASONS = {1: "Not a gzipped file", 2: "Unknown compression method",
+               3: "CRC check failed",
+               4: "Incorrect length of data produced"}
 
-    Returns (mins u64[], hi u64[], lo u64[], bucket minimizers u64[],
-    windows): buckets in file order, then (hi, lo) ascending; windows
-    counts the k-mers before the per-bucket dedup. Raises ValueError
-    for a bucket cut short or malformed, and for k or m the pass cannot
-    hold (k above 64 or m above 32), and for a range outside data."""
-    if not (1 <= m <= 32 and 1 <= k <= 64):
-        raise ValueError(f"sketch header gives k={k}, m={m}: the decode "
-                         "takes 1 <= k <= 64 and 1 <= m <= 32")
-    if not 0 <= pos0 <= end <= len(data):
-        raise ValueError(f"byte range [{pos0}, {end}) is outside the "
-                         f"{len(data)} bytes given")
+
+class Inflated(NamedTuple):
+    """Files read by read_files_native, in file order: file i's bytes
+    are pool[offs[i]:offs[i + 1]]. status is 0 where the file was read
+    whole, else see error(). pos0 is the offset after the header line,
+    0 where the bytes hold no whole line."""
+    pool: np.ndarray
+    offs: np.ndarray
+    status: np.ndarray
+    code: np.ndarray
+    msg: np.ndarray
+    pos0: np.ndarray
+    threads: int
+
+    def error(self, i: int, path) -> Exception:
+        """The exception that reading file i alone with Python's open
+        and gzip raises, for a file whose status is not 0."""
+        status, code = int(self.status[i]), int(self.code[i])
+        if status == _READ_OS:
+            return OSError(code, os.strerror(code), path)
+        if status == _READ_EOF:
+            return EOFError("Compressed file ended before the "
+                            f"end-of-stream marker was reached: {path}")
+        if status == _READ_BAD_GZIP:
+            return gzip.BadGzipFile(f"{_GZ_REASONS[code]}: {path}")
+        if status == _READ_ZLIB:
+            msg = (": " + ctypes.string_at(int(self.msg[i])).decode()
+                   if self.msg[i] else "")
+            return zlib.error(f"Error {code} while decompressing data{msg}: "
+                              f"{path}")
+        return MemoryError(f"reading {path} ran out of memory")
+
+
+def read_files_native(paths, threads: int = 0) -> Inflated:
+    """Read and inflate every file in one C call on up to 8 threads
+    (supersampler_tpu_torch/csrc/spsp_read.c spsp_read_files; threads
+    above 0 pins their number), then copy their bytes into one pooled
+    buffer in file order (spsp_read_collect). A file that starts with
+    the gzip magic is inflated as Python's gzip module reads it, member
+    after member; other bytes are taken as they are. Raises nothing for
+    a file that cannot be read: see Inflated."""
+    names = [os.fsencode(p) for p in paths]
+    if any(b"\0" in name for name in names):
+        raise ValueError("embedded null byte")
+    n = len(names)
+    rows = np.zeros((n, 6), np.int64)
     lib = get_lib()
-    info = np.zeros(4, np.int64)
-    buf = ctypes.c_char_p(data)
-    args = (buf, pos0, end, k, m)
-    rc = lib.spsp_decode_pairs(*args, None, None, None, None,
-                               info.ctypes.data)
+    used = lib.spsp_read_files(n, (ctypes.c_char_p * n)(*names), threads,
+                               rows.ctypes.data)
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(rows[:, _R_SIZE], out=offs[1:])
+    pool = None
+    try:
+        pool = np.empty(int(offs[-1]), np.uint8)
+    finally:
+        lib.spsp_read_collect(n, rows.ctypes.data,
+                              None if pool is None else pool.ctypes.data,
+                              offs.ctypes.data)
+    return Inflated(pool, offs, *(rows[:, c] for c in (
+        _R_STATUS, _R_CODE, _R_MSG, _R_POS0)), int(used))
+
+
+class Decoded(NamedTuple):
+    """What decode_windows_native gives: the distinct pairs of every
+    window (mins, his, los uint64, fids int64), concatenated in window
+    order; each window's pair count; the bucket minimizers of the query
+    windows in order; the k-mer windows before the dedup; the threads
+    that ran."""
+    mins: np.ndarray
+    his: np.ndarray
+    los: np.ndarray
+    fids: np.ndarray
+    pairs: np.ndarray
+    bmins: np.ndarray
+    windows: int
+    threads: int
+
+
+def decode_windows_native(windows, fids, n_query: int,
+                          threads: int = 0) -> Decoded:
+    """Every bucket of every window decoded to its distinct canonical
+    k-mers in one C pass on up to 8 threads
+    (supersampler_tpu_torch/csrc/spsp_decode.c spsp_decode_windows;
+    threads above 0 pins their number).
+
+    windows: (data, pos0, end, k, m) each, the buckets of
+    data[pos0:end], data being bytes or a uint8 numpy array that the
+    caller keeps; fids: each window's file id, written
+    beside its pairs; the first n_query windows' bucket minimizers are
+    returned.
+    Pairs come window by window, buckets in order, then (hi, lo)
+    ascending. Raises ValueError for the first window, in order, whose
+    k or m the pass cannot hold (k above 64 or m above 32) or whose
+    range lies outside its data, then for the first with a bucket cut
+    short or malformed."""
+    n = len(windows)
+    rows = []
+    for data, pos0, end, k, m in windows:
+        arr = np.frombuffer(data, np.uint8)
+        rows.append((arr.ctypes.data, arr.size, pos0, end, k, m))
+    cols = np.array(rows, np.int64).reshape(n, 6)
+    addr, size, pos0, end, k, m = cols.T
+    bad_km = (m < 1) | (m > 32) | (k < 1) | (k > 64)
+    bad = bad_km | (pos0 < 0) | (pos0 > end) | (end > size)
+    if bad.any():
+        i = int(np.argmax(bad))
+        if bad_km[i]:
+            raise ValueError(f"sketch header gives k={k[i]}, m={m[i]}: the "
+                             "decode takes 1 <= k <= 64 and 1 <= m <= 32")
+        raise ValueError(f"byte range [{pos0[i]}, {end[i]}) is outside the "
+                         f"{size[i]} bytes given")
+    addr = np.ascontiguousarray(addr)
+    win = np.column_stack([pos0, end, k, m, np.asarray(fids, np.int64)])
+    out = np.empty((n, 4), np.int64)
+    info = np.zeros(5, np.int64)
+    lib = get_lib()
+    args = (n, n_query, addr.ctypes.data, win.ctypes.data, threads,
+            out.ctypes.data)
+    rc = lib.spsp_decode_windows(*args, None, None, None, None, None,
+                                 info.ctypes.data)
     if rc == 0:
-        windows, nb = int(info[0]), int(info[2])
-        mins, hi, lo = (np.empty(windows, np.uint64) for _ in range(3))
-        bmins = np.empty(nb, np.uint64)
-        rc = lib.spsp_decode_pairs(
-            *args, mins.ctypes.data, hi.ctypes.data, lo.ctypes.data,
-            bmins.ctypes.data, info.ctypes.data)
+        total = int(info[0])
+        mins, his, los = (np.empty(total, np.uint64) for _ in range(3))
+        fids_out = np.empty(total, np.int64)
+        bmins = np.empty(int(info[4]), np.uint64)
+        rc = lib.spsp_decode_windows(
+            *args, mins.ctypes.data, his.ctypes.data, los.ctypes.data,
+            fids_out.ctypes.data, bmins.ctypes.data, info.ctypes.data)
     if rc == -1:
         raise ValueError("sketch bucket cut short or malformed at byte "
-                         f"{int(info[3])} of the inflated sketch")
+                         f"{int(out[int(info[3]), 3])} of the inflated "
+                         "sketch")
     if rc != 0:
         raise MemoryError("the sketch decode ran out of memory")
-    n = int(info[1])
-    return mins[:n], hi[:n], lo[:n], bmins, windows
+    p = int(info[1])
+    return Decoded(mins[:p], his[:p], los[:p], fids_out[:p], out[:, 2],
+                   bmins, int(info[0]), int(info[2]))
 
 
 def group_pairs_native(mins, his, los, fids):

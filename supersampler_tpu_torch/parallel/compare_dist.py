@@ -16,27 +16,37 @@ an XLA ``jnp.dot`` there, is ``torch._int_mm`` here (cuBLASLt's int8 x
 int8 -> int32 path on CUDA), exact in integers; the final sum stands in
 for the JAX mesh's all-reduce.
 
+Decoding (decode_windows) is the comparator's one way from sketch bytes
+to pairs: whole sketches (decode_files: one native read of every file,
+then the pass), a chunk's byte windows or the gloo process's own files
+go through one native pass, compare/reader.py's ``decode_pass``, which
+shares the windows out over up to 8 threads and writes every pair into
+one set of concatenated arrays.
+
 Grouping (group_pairs) is one native pass over the decoded pairs: it
 cuts them into slices of one file and one minimizer, orders the slices
 by minimizer (file order kept) and sorts each minimizer's few hundred
 k-mers stably, minimizers shared out over up to 8 threads; it needs the
 files' pairs in file order, which the decode gives.
 
-Counters (utils/profiling.py, in a profiler session):
-``decode.windows`` (k-mer windows before the dedup) and
-``decode.pairs`` (after it), counted in compare/reader.py's native
-pass, ``group.runs`` (the runs the grouping found: one per sketch
-whose buckets are in order) and ``score.h2d_bytes``.
+Spans and counters (utils/profiling.py, in a profiler session): in each
+``compare.decode``, one ``decode.read`` (whole sketches only) and one
+``decode.pass``, with the counters compare/reader.py gives them
+(``decode.read.threads``, ``decode.inflated_bytes``,
+``decode.pass.threads``, ``decode.windows``, ``decode.pairs``);
+``group.runs`` (the runs the grouping found: one per sketch whose
+buckets are in order) and ``score.h2d_bytes``.
 """
 
 from __future__ import annotations
 
+from bisect import bisect_left
 from typing import Dict, List, Optional, Set
 
 import numpy as np
 import torch
 
-from supersampler_tpu_torch.compare.reader import decode_window, read_sketch
+from supersampler_tpu_torch.compare.reader import decode_pass, read_sketches
 from supersampler_tpu_torch.native import group_pairs_native
 from supersampler_tpu_torch.parallel.mesh import Mesh
 from supersampler_tpu_torch.utils.profiling import count, phase
@@ -44,11 +54,13 @@ from supersampler_tpu_torch.utils.profiling import count, phase
 
 def decode_windows(windows, n: int, query_size: Optional[int]):
     """Decode the windows of n sketches into one set of pair arrays, in
-    file order: the comparator's one way from sketch bytes to pairs.
+    file order, in one native pass: the comparator's one way from sketch
+    bytes to pairs.
 
     windows gives, for each file in turn, None when the file has no
     bucket to decode or its window (data, pos0, end, k, m) (see
-    compare/reader.py); it is drawn from inside ``compare.decode``.
+    compare/reader.py); it is drawn from inside ``compare.decode``, and
+    the data of each window is kept until the pass has run.
     Returns (mins, his, los, file ids int64, per-file pair counts, k, m,
     query minimizers). The last window gives k and m. The query
     minimizers are the bucket minimizers of files [0, query_size), or
@@ -57,27 +69,24 @@ def decode_windows(windows, n: int, query_size: Optional[int]):
     """
     with phase("compare.decode"):
         query = query_size is not None and query_size < n
-        query_minimizers: Optional[Set[int]] = set() if query else None
-        cols, nb_seen, k, m = [], [0] * n, 0, 0
-        for f, window in enumerate(windows):
-            if window is None:
-                continue
-            mins, his, los, bucket_mins = decode_window(*window)
-            k, m = window[3:]
-            nb_seen[f] = int(mins.size)
-            cols.append((mins, his, los, np.full(mins.size, f, np.int64)))
-            if query and f < query_size:
-                query_minimizers.update(bucket_mins.tolist())
-        if not cols:
-            cols = [(np.zeros(0, np.uint64),) * 3 + (np.zeros(0, np.int64),)]
-        return (*(np.concatenate(c) for c in zip(*cols)), nb_seen, k, m,
-                query_minimizers)
+        kept = [(f, w) for f, w in enumerate(windows) if w is not None]
+        files = [f for f, _w in kept]
+        got = decode_pass([w for _f, w in kept], files,
+                          bisect_left(files, query_size) if query else 0)
+        nb_seen = [0] * n
+        for f, pairs in zip(files, got.pairs.tolist()):
+            nb_seen[f] = pairs
+        k, m = kept[-1][1][3:] if kept else (0, 0)
+        return (got.mins, got.his, got.los, got.fids, nb_seen, k, m,
+                set(got.bmins.tolist()) if query else None)
 
 
 def decode_files(files: List[str], query_size: int = None):
-    """Decode whole sketches, each read as decode_windows reaches it:
-    decode_windows' result."""
-    return decode_windows(map(read_sketch, files), len(files), query_size)
+    """Decode whole sketches, all read in one native call when
+    decode_windows draws the first window: decode_windows' result."""
+    def windows():
+        yield from read_sketches(files)
+    return decode_windows(windows(), len(files), query_size)
 
 
 def group_pairs(mins, his, los, fids,

@@ -6,6 +6,7 @@ chunked with a resume manifest) must equal supersampler_tpu's exactly:
 integers, strings and bytes. Inputs are the repo's goldens, or made
 from a seed."""
 
+import functools
 import glob
 import gzip
 import io
@@ -13,6 +14,7 @@ import json
 import os
 import random
 import struct
+import zlib
 
 import numpy as np
 import pytest
@@ -29,8 +31,12 @@ import supersampler_tpu_torch.parallel.compare_dist as TCD
 from supersampler_tpu.compare.merge import TpuComparator
 from supersampler_tpu.io.gzip_exact import write_gzip_exact
 from supersampler_tpu.oracle.subsampler import OracleSubsampler
+from supersampler_tpu_torch import native
 from supersampler_tpu_torch.compare.merge import TorchComparator
+from supersampler_tpu_torch.io.fasta import open_maybe_gzip
+from supersampler_tpu_torch.io.gzip_exact import gzip_compress_exact
 from supersampler_tpu_torch.parallel.mesh import make_mesh
+from supersampler_tpu_torch.utils.profiling import timers
 
 _GOLD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 _FILES = [os.path.join(_GOLD, f"gfam_fam{i}.gz") for i in range(4)]
@@ -245,6 +251,256 @@ def test_decode_truncated_sketch_as_jax(tmp_path, name):
         TR.decode_sketch_pairs(path)
 
 
+# the native read and the batched pass
+
+
+def _member(data, flags=0, extra=b"", name=b"", comment=b""):
+    """One gzip member of data built by hand: flags 4 (an extra field),
+    8 (a name), 16 (a comment) and 2 (a header CRC, which Python's gzip
+    reads but does not check) as given, raw deflate data, the trailer."""
+    head = bytes([0x1F, 0x8B, 8, flags, 0, 0, 0, 0, 0, 255])
+    if flags & 4:
+        head += struct.pack("<H", len(extra)) + extra
+    if flags & 8:
+        head += name + b"\0"
+    if flags & 16:
+        head += comment + b"\0"
+    if flags & 2:
+        head += b"\x12\x34"
+    co = zlib.compressobj(6, zlib.DEFLATED, -zlib.MAX_WBITS)
+    return (head + co.compress(data) + co.flush()
+            + struct.pack("<II", zlib.crc32(data), len(data) & 0xFFFFFFFF))
+
+
+def _sketch_bytes(seed, n_buckets=30, k=31, m=11):
+    return _made_up_sketch(np.random.default_rng(seed), k, m, n_buckets)
+
+
+_HEADER_ONLY = b"51 11 0 10.000000\n"
+_READ_KINDS = ["goldens", "level1", "level9", "two_members",
+               "zero_padding", "header_fields", "plain", "empty",
+               "header_only"]
+
+
+def _read_case(tmp_path, kind):
+    """The files of one kind of input to the native read."""
+    if kind == "goldens":
+        return [os.path.join(_GOLD, n) for n in _SKETCHES]
+    a, b = _sketch_bytes(1), _sketch_bytes(2)
+    out = {"level1": [gzip_compress_exact(a, 1)],
+           "level9": [gzip_compress_exact(a, 9), gzip_compress_exact(b"", 9)],
+           "two_members": [gzip.compress(a[:700]) + gzip.compress(a[700:]),
+                           _member(a[:5]) + _member(a[5:], 8, name=b"x.txt")],
+           "zero_padding": [gzip.compress(a) + bytes(100),
+                            gzip.compress(a[:9]) + bytes(7)
+                            + gzip.compress(a[9:]) + bytes(1)],
+           "header_fields": [_member(a, 2 | 4 | 8 | 16, b"xyz", b"name",
+                                     b"a comment"), _member(b, 4)],
+           "plain": [a, b],
+           "empty": [b"", gzip.compress(b"")],
+           "header_only": [_HEADER_ONLY, gzip.compress(_HEADER_ONLY)]}[kind]
+    paths = []
+    for i, data in enumerate(out):
+        paths.append(str(tmp_path / f"{kind}{i}"))
+        with open(paths[-1], "wb") as f:
+            f.write(data)
+    return paths
+
+
+@pytest.mark.parametrize("threads", [1, 8])
+@pytest.mark.parametrize("kind", _READ_KINDS)
+def test_native_read_equals_python_gzip(tmp_path, kind, threads):
+    """The native read's bytes are those Python's gzip (or, for a file
+    without the gzip magic, open) reads, and the end of its header line
+    is parse_header's, each file of a kind read in one call, and every
+    kind's files in one call too."""
+    paths = _read_case(tmp_path, kind)
+    if kind == "goldens":
+        paths += [q for other in _READ_KINDS[1:]
+                  for q in _read_case(tmp_path, other)]
+    got = native.read_files_native(paths, threads)
+    assert 1 <= got.threads <= min(threads, len(paths))
+    assert got.pool.dtype == np.uint8 and got.offs[-1] == got.pool.size
+    for i, path in enumerate(paths):
+        with open_maybe_gzip(path) as f:
+            want = f.read()
+        assert got.status[i] == 0
+        assert got.pool[got.offs[i]:got.offs[i + 1]].tobytes() == want
+        assert got.pos0[i] == (TR.parse_header(want)[2]
+                               if b"\n" in want else 0)
+
+
+def _python_read(path):
+    """The read the comparator made before the native one: open, gzip
+    where the magic says so, parse_header."""
+    with open_maybe_gzip(path) as f:
+        data = f.read()
+    return data, TR.parse_header(data)
+
+
+def _bad_file(tmp_path, kind):
+    """A file of one kind that Python's open, gzip or parse_header
+    refuses (but odd_header, which parse_header reads); missing is
+    never written."""
+    good = gzip.compress(_sketch_bytes(3))
+    data = {"cut_trailer": good[:-3], "cut_deflate": good[: len(good) // 2],
+            "cut_header": good[:7],
+            "cut_name": _member(b"ACGT", 8, name=b"a name")[:14],
+            "corrupt_deflate": good[:10] + b"\x07" + good[11:],
+            "bad_crc": good[:-8] + bytes(4) + good[-4:],
+            "bad_length": good[:-4] + bytes(4),
+            "bad_method": good[:2] + b"\x07" + good[3:],
+            "garbage_after": good + b"xy", "one_byte_after": good + b"\x1f",
+            "no_header_line": gzip.compress(b"ACGT"), "empty": b"",
+            "bad_header": b"51\n", "odd_header": b"51 +11\r\n"}.get(kind)
+    path = str(tmp_path / kind)
+    if kind == "directory":
+        os.mkdir(path)
+    elif data is not None:
+        with open(path, "wb") as f:
+            f.write(data)
+    return path
+
+
+_BAD_KINDS = ["missing", "directory", "cut_trailer", "cut_deflate",
+              "cut_header", "cut_name", "corrupt_deflate", "bad_crc",
+              "bad_length", "bad_method", "garbage_after", "one_byte_after",
+              "no_header_line", "empty", "bad_header", "odd_header"]
+
+
+@pytest.mark.parametrize("kind", _BAD_KINDS)
+def test_native_read_fails_as_python(tmp_path, kind):
+    """A file that cannot be read, or has no header, raises what
+    Python's open, gzip and parse_header raise for it, alone and among
+    good files; an odd header that parse_header reads (odd_header) gives
+    the window Python reads."""
+    path = _bad_file(tmp_path, kind)
+    good = os.path.join(_GOLD, _SKETCHES[0])
+    try:
+        want = _python_read(path)
+    except Exception as e:     # the class the native read must raise
+        want = e
+    for paths in ([path], [good, path, good]):
+        if not isinstance(want, Exception):
+            window = TR.read_sketches(paths)[paths.index(path)]
+            assert window[0].tobytes() == want[0]
+            assert window[1:] == (want[1][2], len(want[0])) + want[1][:2]
+            continue
+        with pytest.raises(type(want)) as got:
+            TR.read_sketches(paths)
+        assert type(got.value) is type(want)
+        if isinstance(want, OSError) and not isinstance(
+                want, gzip.BadGzipFile):
+            assert got.value.filename == path
+        with pytest.raises(type(want)):
+            TCD.decode_files(paths)
+    assert isinstance(want, Exception) == (kind != "odd_header")
+
+
+@pytest.mark.parametrize("order", [(0, 1, 2), (1, 0, 2), (2, 1, 0)])
+def test_native_read_names_the_first_failing_file(tmp_path, order):
+    """Of several files that fail, the first in file order is raised."""
+    bad = [_bad_file(tmp_path, k)
+           for k in ("missing", "cut_trailer", "corrupt_deflate")]
+    kinds = (FileNotFoundError, EOFError, zlib.error)
+    paths = [os.path.join(_GOLD, _SKETCHES[0])] + [bad[i] for i in order]
+    with pytest.raises(kinds[order[0]], match=os.path.basename(
+            bad[order[0]])):
+        TR.read_sketches(paths)
+
+
+@pytest.fixture(params=[1, 8])
+def pinned(request, monkeypatch):
+    """The native read and pass pinned to 1 or 8 threads."""
+    for name in ("read_files_native", "decode_windows_native"):
+        monkeypatch.setattr(TR, name, functools.partial(
+            getattr(native, name), threads=request.param))
+    return request.param
+
+
+def _decode_case(tmp_path, case):
+    """The sketch files of one decode_files case."""
+    if case == "goldens":
+        return [os.path.join(_GOLD, n) for n in _SKETCHES]
+    if case == "made_up":
+        datas = [_sketch_bytes(100 + i, n_buckets=5 + i % 30)
+                 for i in range(100)]
+    else:
+        # sketches with nothing to decode among sketches with pairs: a
+        # header alone, a bucket of no k-mer, plain and gzipped
+        nothing = _HEADER_ONLY + b"ACGTACGTACG" + struct.pack("<I", 0) \
+            + b"\n\n"
+        datas = [_HEADER_ONLY, _sketch_bytes(7), nothing,
+                 gzip.compress(_HEADER_ONLY), gzip.compress(nothing),
+                 gzip.compress(_sketch_bytes(8)), _HEADER_ONLY]
+    paths = []
+    for i, data in enumerate(datas):
+        paths.append(str(tmp_path / f"{case}{i}"))
+        with open(paths[-1], "wb") as f:
+            f.write(gzip.compress(data) if case == "made_up" and i % 2
+                    else data)
+    return paths
+
+
+@pytest.mark.parametrize("query", [False, True])
+@pytest.mark.parametrize("case", ["goldens", "made_up", "nothing"])
+def test_decode_files_is_the_per_file_decode(tmp_path, pinned, case, query):
+    """decode_files, one native read and one pass on 1 or 8 threads,
+    gives exactly the concatenation of each file's decode_sketch_pairs
+    in the JAX package, and in the port: arrays, file ids, per-file
+    counts, k, m and the query minimizers (dtypes the port's); each
+    stage ran on the threads pinned, or one a file."""
+    paths = _decode_case(tmp_path, case)
+    n = len(paths)
+    qs = n // 3 if query else None
+    timers.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = TCD.decode_files(paths, qs)
+    threads = {c.name: c.n for c in timers.counters()
+               if c.name.endswith(".threads")}
+    timers.reset()
+    assert threads == {"decode.read.threads": min(pinned, n),
+                       "decode.pass.threads": min(pinned, n)}
+    jax = [JR.decode_sketch_pairs(p) for p in paths]
+    port = [TR.decode_sketch_pairs(p) for p in paths]
+    for per in (jax, port):
+        for a in range(3):
+            want = np.concatenate([p[a] for p in per]).astype(np.uint64)
+            assert got[a].dtype == np.uint64 and np.array_equal(got[a], want)
+        fids = np.concatenate([np.full(p[0].size, f, np.int64)
+                               for f, p in enumerate(per)])
+        assert got[3].dtype == np.int64 and np.array_equal(got[3], fids)
+        assert got[4] == [p[0].size for p in per]
+        assert got[5:7] == per[-1][3:5] == (31, 11)
+        assert got[7] == (set().union(*(p[5] for p in per[:qs]))
+                          if query else None)
+    assert (0 in got[4]) == (case == "nothing") and sum(got[4]) > 0
+
+
+@pytest.mark.parametrize("name", ["sketch_big_k31_m11_s100_a1.gz",
+                                  "sketch_big_k15_m5_s50_a1.gz"])
+def test_truncated_window_among_good_ones(tmp_path, pinned, name):
+    """A golden cut inside a bucket, among whole sketches, makes the
+    batched pass raise the ValueError of its own decode, naming its
+    byte; of two cut windows, the first in file order."""
+    with gzip.open(os.path.join(_GOLD, name)) as f:
+        data = f.read()
+    good = os.path.join(_GOLD, name)
+    cuts = []
+    for i, cut in enumerate((len(data) - 1, len(data) * 2 // 3,
+                             len(data) // 3)):
+        cuts.append(str(tmp_path / f"cut{i}"))
+        with open(cuts[-1], "wb") as f:
+            f.write(data[:cut])
+    for i, path in enumerate(cuts):
+        with pytest.raises(ValueError, match=r"at byte \d+") as alone:
+            TR.decode_sketch_pairs(path)
+        with pytest.raises(ValueError) as batched:
+            TCD.decode_files([good, path, good] + cuts[:i])
+        assert str(batched.value) == str(alone.value)
+
+
 def _same_chunks(got, want):
     """chunk_rounds' chunks against the JAX package's: the same chunks
     and offsets, and each file's window decodes to the pairs and the
@@ -289,6 +545,31 @@ def test_chunk_windows_survive_compaction(monkeypatch):
                                  1 << 10))
     assert len(got) > 1 and kept > 0
     _same_chunks(got, want)
+
+
+@pytest.mark.parametrize("chunk_bytes", [1 << 10, 1 << 30])
+def test_chunk_windows_in_one_pass_match_jax(pinned, chunk_bytes):
+    """Each chunk's windows, decoded together in one pass on 1 or 8
+    threads, give JAX's pairs of that chunk's buckets, file by file,
+    with the file ids and counts."""
+    k, m = TST.BucketStream(_FILES[0]).k, TST.BucketStream(_FILES[0]).m
+    got = list(TST.chunk_rounds([TST.BucketStream(p) for p in _FILES],
+                                chunk_bytes))
+    want = list(JST.chunk_rounds([JST.BucketStream(p) for p in _FILES],
+                                 chunk_bytes))
+    assert len(got) == len(want)
+    for (_i, windows, _o), (_j, jchunk, _p) in zip(got, want):
+        out = TCD.decode_windows(
+            [None if w is None else w + (k, m) for w in windows],
+            len(windows), None)
+        per = [JR.decode_bucket_pairs(b, k, m) if b else
+               (np.zeros(0, np.uint64),) * 3 for b in jchunk]
+        for a in range(3):
+            assert np.array_equal(out[a], np.concatenate(
+                [p[a] for p in per]).astype(np.uint64))
+        assert out[4] == [p[0].size for p in per]
+        assert np.array_equal(out[3], np.repeat(np.arange(len(per)),
+                                                out[4]))
 
 
 @pytest.mark.parametrize("jaccard", [False, True])

@@ -8,6 +8,7 @@ counters on the family goldens, its ``record_function`` ranges, outputs
 equal with and without the profiler, the sketch's threads."""
 
 import collections
+import gzip
 import json
 import os
 import struct
@@ -95,7 +96,7 @@ def test_phase_timers_lose_no_update_under_threads():
 
 _GOLD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 _FAMILY = [f"gfam_fam{i}.gz" for i in range(4)]
-_DECODE = ("decode.read", "decode.pass")
+_THREADS = ("decode.read.threads", "decode.pass.threads")
 # every span of a comparison but the root, and the span it must sit in
 _PARENT = {"compare.open": "compare.call", "compare.decode": "compare.call",
            "decode.read": "compare.decode", "decode.pass": "compare.decode",
@@ -158,9 +159,9 @@ def test_comparison_span_tree(family):
         assert root.call == root.span
         mine = [s for s in spans if s.call == root.call]
         names = collections.Counter(s.name for s in mine)
+        # one read and one pass for the whole decode, whatever the files
         assert names == collections.Counter(
-            {"compare.call": 1, **{n: 1 for n in _PARENT},
-             **{n: len(family) for n in _DECODE}})
+            {"compare.call": 1, **{n: 1 for n in _PARENT}})
         for s in mine:
             if s.name == "compare.call":
                 continue
@@ -171,16 +172,16 @@ def test_comparison_span_tree(family):
     csvs = [s for s in spans if s.name == "compare.csv"]
     assert len(csvs) == 4
     assert all(s.parent is None and s.call == s.span for s in csvs)
-    per_call = 1 + len(_PARENT) - len(_DECODE) + len(_DECODE) * len(family)
-    assert len(spans) == 2 * per_call + 4
+    assert len(spans) == 2 * (1 + len(_PARENT)) + 4
     assert len({s.span for s in spans}) == len(spans)
 
 
 @pytest.mark.parametrize("engine", ["device", "numpy"])
 def test_chunked_comparison_spans(family, engine):
     """The chunked engine: one root, each chunk's decode as a
-    ``compare.decode`` with one ``decode.pass`` inside it for each file
-    that has buckets in the chunk."""
+    ``compare.decode`` with one ``decode.pass`` inside it over the
+    windows of every file that has buckets in the chunk, and no
+    ``decode.read``."""
     with _session():
         _compare(family, engine, chunk_bytes=1024)
     spans = timers.spans()
@@ -190,9 +191,12 @@ def test_chunked_comparison_spans(family, engine):
     names = collections.Counter(s.name for s in spans)
     chunks = list(chunk_rounds([BucketStream(f) for f in family], 1024))
     assert "decode.read" not in names
-    assert names["decode.pass"] == sum(
-        1 for _i, per_file, _o in chunks for b in per_file if b) > len(family)
-    assert names["compare.decode"] == len(chunks) >= 2
+    assert names["decode.pass"] == names["compare.decode"] == len(chunks) >= 2
+    threads = [x.n for x in timers.counters()
+               if x.name == "decode.pass.threads"]
+    assert len(threads) == len(chunks)
+    assert all(1 <= t <= sum(1 for b in per_file if b)
+               for t, (_i, per_file, _o) in zip(threads, chunks))
     for s in spans:
         if s.name.startswith("decode."):
             assert by_id[s.parent].name == "compare.decode"
@@ -206,15 +210,24 @@ def test_comparison_counters(family):
         c = _compare(family)
         c.containment_csv()
     n = _totals(timers.counters())
-    assert sum(s.name == "decode.read" for s in timers.spans()) \
-        == len(family)
+    assert sum(s.name == "decode.read" for s in timers.spans()) == 1
     assert n["decode.pairs"] == sum(c.nb_kmer_seen_infile) > 0
     assert n["decode.windows"] >= n["decode.pairs"]
+    # the inflated bytes of every sketch, on 1 to 8 threads a stage
+    inflated = 0
+    for f in family:
+        with gzip.open(f) as g:
+            inflated += len(g.read())
+    assert n["decode.inflated_bytes"] == inflated
+    for name in _THREADS:
+        threads = [x.n for x in timers.counters() if x.name == name]
+        assert len(threads) == 1 and 1 <= threads[0] <= min(8, len(family))
     # all against all: every decoded pair is grouped and copied, as an
     # int32 group id and an int32 file id
     assert n["score.h2d_bytes"] == 8 * n["decode.pairs"]
     assert set(n) == {"decode.windows", "decode.pairs", "group.runs",
-                      "score.h2d_bytes"}
+                      "score.h2d_bytes", "decode.inflated_bytes",
+                      *_THREADS}
     root, = [s for s in timers.spans() if s.name == "compare.call"]
     assert all(x.call == root.span for x in timers.counters())
 
@@ -283,7 +296,7 @@ def test_no_spans_or_counters_outside_a_session(family):
     c.containment_csv()
     assert timers.spans() == [] and timers.counters() == []
     assert timers.counts["compare.call"] == 1
-    assert timers.counts["decode.read"] == len(family)
+    assert timers.counts["decode.read"] == timers.counts["decode.pass"] == 1
     assert timers.totals["compare.decode"] > 0
 
 
